@@ -20,10 +20,28 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    batches of 8 frames timed with CUDA events; the launch counters must
    grow by exactly 6 trace and 3 shade launches a frame;
 5. kernel path against plain path end to end: 160x120, depth 3, 4 frames on
-   the card and on the CPU (plain versions), display-domain gate.
+   the card and on the CPU (plain versions), display-domain gate;
+6. the trace probes (``vkrt_tpu_torch.benchmarks``) on Cornell and on
+   ``make_city(grid=96)`` (143,568 triangles) at 1280x720: micro_trace
+   (kernel C's launch floor at four block sizes, kernel A closest and any
+   on primary and incoherent rays), ablate_kernel (kernel D's four modes),
+   variants (kernel E's variants on tile-ordered and incoherent rays) and
+   vpupeak (kernel F, K = 65,536); the launch counters must show every
+   probe kernel. Then each kernel against its plain version: C the miss
+   record at every block size; F bit-equal to its plain recurrence at
+   K = 512 and at the timed K = 65,536, on seeded inputs that differ
+   element by element; kernel A against brute force on 65,536 subsampled
+   rays; D
+   ``full`` and ``count`` bit-equal to kernel A, ``boxes`` and ``top`` the
+   miss record, ``count``'s visit columns equal to ``trace_rays_bvh`` on
+   every city primary and on 4,096-ray subsamples of the other sets; E's
+   variants against kernel A (``mt128`` against brute force over its 128
+   triangles) by phase 2's rule.
 
-The last lines are a JSON object of the kernels, the card's nvidia-smi
-line, and ``{"ok": true, "device": {...}}``.
+The last lines are a JSON object of the kernels (each with its time, its
+plain version's time, its bound and the one PyTorch call's time where one
+computes the same function), the card's nvidia-smi line, and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,31 +56,64 @@ import numpy as np
 W, H = 1280, 720
 DEPTH = 3
 CLEAR = (1.0, 1.0, 1.0, 1.0)
-TRACE_SOURCE = "vkrt_tpu_torch/csrc/trace.cu"
-SHADE_SOURCE = "vkrt_tpu_torch/csrc/shade.cu"
-TRACE_REPLACES = "vkrt_tpu/ops/pallas/trace.py:1084"
-SHADE_REPLACES = "vkrt_tpu/ops/pallas/shade.py:179"
+CSRC = "vkrt_tpu_torch/csrc/"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "trace": (CSRC + "trace.cu", "vkrt_tpu/ops/pallas/trace.py:1084"),
+    "shade": (CSRC + "shade.cu", "vkrt_tpu/ops/pallas/shade.py:179"),
+    "floor": (CSRC + "probes.cu", "benchmarks/micro_trace.py:51"),
+    "trace_ablate": (CSRC + "trace_variants.cu", "benchmarks/scratch/ablate_kernel.py:95"),
+    "trace_variant": (CSRC + "trace_variants.cu", "benchmarks/scratch/variants.py:220"),
+    "fma_peak": (CSRC + "probes.cu", "benchmarks/scratch/vpupeak.py:65"),
+}
+# the card's published peaks (H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# FP32 instructions a second: the 67 TFLOP/s count an FMA as 2 FLOPs, and
+# every other FP32 instruction (add, mul, min, max, compare) issues at the
+# FMA's rate and does one
+FP32_INSTR_PER_S = FP32_FLOPS / 2
+# FP32 instructions of one slab test and one Moller-Trumbore test of the
+# traversal kernels (csrc/trace.cu), counted from the source: none of them
+# is a fused multiply-add
+SLAB_OPS, MT_OPS = 26, 52
+PROBE_VARIANTS = ("threaded", "ordered", "flat", "mt128")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Mean ms of ``fn`` on the card, by CUDA events around ``reps`` calls."""
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls queued behind a spin
+    kernel and timed back to back with CUDA events (``time_calls``)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    from vkrt_tpu_torch.benchmarks import time_calls
+
+    return time_calls(fn, reps, torch.device("cuda"))[0]
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(n_bytes: float, instrs: float):
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the FP32 instructions over its FP32 instruction rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, instrs / FP32_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def trace_bound(nodes, scene, n_rays: int, counts, out_bytes_per_ray: int = 16):
+    """Bound of a traversal over ``n_rays`` rays: each input read once (node
+    table, triangle tables, 7 floats a ray), each output written once, and
+    the FP32 instructions of the slab and Moller-Trumbore tests this run's
+    walk made (``counts``, a BvhCounts)."""
+    n_bytes = (nbytes(nodes, scene.tri_v0, scene.tri_e1, scene.tri_e2)
+               + n_rays * (28 + out_bytes_per_ray))
+    instrs = (int(counts.nodes.sum()) * SLAB_OPS + int(counts.leaves.sum()) * MT_OPS)
+    return bound(n_bytes, instrs)
 
 
 def compare_trace(name, k, p, t_lim) -> float:
@@ -169,7 +220,7 @@ def phase_kernels(dev, results):
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer, trace_kernel
     from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
     from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
-    from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce
+    from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce, trace_rays_bvh
     from vkrt_tpu_torch.scene import load_cornell, make_random_soup
     from vkrt_tpu_torch.utils.camera import Camera, generate_rays, pixel_coords, tile_perm
 
@@ -191,9 +242,16 @@ def phase_kernels(dev, results):
     k = tracer.trace(o, d, lim)
     errs = [compare_trace("primaries 1280x720", k, plain(o, d, lim), lim)]
     ms = cuda_ms(lambda: tracer.trace(o, d, lim))
-    plain_ms = cuda_ms(lambda: plain(o, d, lim), reps=3, warmup=1)
-    log(f"[trace] primaries 1280x720: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    results["trace"] = {"ms": ms, "plain_ms": plain_ms}
+    plain_ms = cuda_ms(lambda: plain(o, d, lim), reps=3)
+    walk, counts = trace_rays_bvh(tracer.nodes, scene, o, d, lim, count=True)
+    if not all(torch.equal(a, b) for a, b in zip(walk, k)):
+        raise AssertionError("trace_rays_bvh's hits differ from kernel A's on the primaries")
+    bound_ms, bound_by = trace_bound(tracer.nodes, scene, W * H, counts)
+    log(f"[trace] primaries 1280x720: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}; {counts.nodes.float().mean():.2f} node "
+        f"and {counts.leaves.float().mean():.2f} leaf visits a ray)")
+    results["trace"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None}
 
     # (b) frame 1's bounce pool and its shadow pool
     frame = 1
@@ -227,9 +285,16 @@ def phase_kernels(dev, results):
         shade_errs.append(compare_shade(f"bounce {dd} 1280x720 corr", out, shade_plain(*args)))
         if dd == 0:
             s_ms = cuda_ms(lambda: shade(*args))
-            s_plain = cuda_ms(lambda: shade_plain(*args), reps=3, warmup=1)
-            log(f"[shade] bounce 0 1280x720: kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms")
-            results["shade"] = {"ms": s_ms, "plain_ms": s_plain}
+            s_plain = cuda_ms(lambda: shade_plain(*args), reps=3)
+            # every input read once, every output written once
+            io = nbytes(carry, seed, rays, *hit, sh_tri, scene.corner_normal,
+                        scene.corner_tangent, scene.tri_mat, mat_tab, light_tab, tab,
+                        out.carry, out.seed, out.next_rays, out.shadow_rays)
+            b_ms, b_by = bound(io, 0)
+            log(f"[shade] bounce 0 1280x720: kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, "
+                f"bound {b_ms:.4f} ms ({b_by}, {io / n:.1f} B/lane)")
+            results["shade"] = {"ms": s_ms, "plain_ms": s_plain, "bound_ms": b_ms,
+                                "bound_by": b_by, "library_ms": None}
         sh = out.shadow_rays
         sh_o, sh_d, sh_l = sh[0:3].T, sh[3:6].T, sh[6]
         k = tracer.trace(sh_o, sh_d, sh_l)
@@ -249,7 +314,7 @@ def phase_kernels(dev, results):
     k = trace_kernel(soup_tracer.nodes, soup, o, d, lim)
     errs.append(compare_trace("soup 16384 tris, 65536 rays", k, plain(o, d, lim, soup), lim))
     ms = cuda_ms(lambda: trace_kernel(soup_tracer.nodes, soup, o, d, lim))
-    plain_ms = cuda_ms(lambda: plain(o, d, lim, soup), reps=2, warmup=1)
+    plain_ms = cuda_ms(lambda: plain(o, d, lim, soup), reps=2)
     log(f"[trace] soup 16384 tris, 65536 rays: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results["trace"]["max_abs_err"] = max(errs)
 
@@ -257,7 +322,7 @@ def phase_kernels(dev, results):
 def phase_main_path(dev, results):
     import torch
 
-    from vkrt_tpu.config import RenderSettings
+    from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
@@ -308,7 +373,7 @@ def phase_main_path(dev, results):
 def phase_end_to_end(dev):
     import torch
 
-    from vkrt_tpu.config import RenderSettings
+    from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.scene import load_cornell
     from vkrt_tpu_torch.utils.camera import Camera
@@ -335,14 +400,255 @@ def phase_end_to_end(dev):
         raise AssertionError(f"ray counts differ: {rays}")
 
 
+def sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def subsample(n: int, m: int):
+    """``m`` evenly strided lane ids of ``n``."""
+    import torch
+
+    return torch.arange(0, n, max(n // m, 1))[:m]
+
+
+def pick(hits, idx):
+    return type(hits)(*(x[idx.to(x.device)] for x in hits))
+
+
+def check_equal(name, a, b) -> None:
+    """Bit-equal tensors (tuples of tensors)."""
+    import torch
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: output {i} differs on "
+                                 f"{int((x != y).sum())} of {x.numel()} elements")
+
+
+def phase_probes(dev, results):
+    """Phase 6: the trace-probe entry points at full size, their launch
+    counts, then every probe kernel against its plain version."""
+    t_phase = time.perf_counter()
+    run = drive_probes(dev)
+    log(f"[probes] launches on the probe path: {run['launches']}")
+    if not all(run["launches"].values()):
+        raise AssertionError(f"a probe kernel was never launched: {run['launches']}")
+    check_probes(dev, run, results)
+    log(f"[probes] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def drive_probes(dev) -> dict:
+    """Build Cornell and the city, then run every probe entry point as a
+    user runs it, with the launch counters set to 0 just before and read
+    just after."""
+    import torch
+
+    from vkrt_tpu_torch.benchmarks import ablate_kernel, build, micro_trace, variants, vpupeak
+    from vkrt_tpu_torch.ops.cuda.probes import floor_kernel, fma_peak
+    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+    from vkrt_tpu_torch.ops.cuda.trace_variants import trace_ablate, trace_variant
+
+    built = {name: build(name, dev) for name in ("cornell", "city")}
+    city = built["city"]
+    log(f"[probes] city: {city.scene.num_tris} triangles (padded), host build "
+        f"{city.seconds['scene']:.4f} s scene + {city.seconds['bvh']:.4f} s BVH + "
+        f"{city.seconds['tables']:.4f} s tables; {city.tables.nodes.shape[0]} BVH nodes, "
+        f"depth {city.tables.max_depth}")
+    counters = (floor_kernel, fma_peak, trace_ablate, trace_variant, trace_kernel)
+    for c in counters:
+        c.launches = 0
+    run = {
+        "built": built,
+        "mt": {k: micro_trace.run(k, W, H, iters=8, device=dev, built=b)
+               for k, b in built.items()},
+        "ab": {k: ablate_kernel.run(k, W, H, iters=4, device=dev, built=b)
+               for k, b in built.items()},
+        "va": {k: variants.run(k, PROBE_VARIANTS, W, H, iters=4, incoherent=True,
+                               device=dev, built=b) for k, b in built.items()},
+        "fp": vpupeak.run(65536, 64, 20, dev),
+    }
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    run["launches"] = {c.__name__: c.launches for c in counters}
+    return run
+
+
+def check_probes(dev, run, results) -> None:
+    """Every probe kernel against its plain version; fills ``results``."""
+    import torch
+
+    from vkrt_tpu_torch.benchmarks import ablate_kernel, micro_trace
+    from vkrt_tpu_torch.ops.cuda.probes import (
+        FLOOR_THREADS, fma_flops, fma_peak, fma_peak_plain, floor_kernel, floor_plain,
+        miss_record,
+    )
+    from vkrt_tpu_torch.ops.trace import RayHits, trace_rays_bruteforce, trace_rays_bvh
+
+    built, mt, ab, va, fp = (run[k] for k in ("built", "mt", "ab", "va", "fp"))
+    launches = run["launches"]
+
+    # C: the miss record at every block size
+    n = mt["cornell"]["rays"]
+    o, d = mt["cornell"]["primary"]["o"], mt["cornell"]["primary"]["d"]
+    lim = torch.full((n,), 1e4, device=dev)
+    for threads in FLOOR_THREADS:
+        check_equal(f"floor {threads} threads", floor_kernel(o, d, lim, threads),
+                    floor_plain(o, d, lim))
+    floor = min(mt["cornell"]["floor"], key=lambda r: r["device_us"])
+    buf = torch.empty((4, n), device=dev)
+    c_bound = bound(n * 44, 0)
+    results["floor"] = {
+        "launches": launches["floor_kernel"], "max_abs_err": 0.0,
+        "ms": floor["device_us"] * 1e-3,
+        "plain_ms": cuda_ms(lambda: floor_plain(o, d, lim)),
+        "bound_ms": c_bound[0], "bound_by": c_bound[1],
+        "library_ms": cuda_ms(lambda: buf.zero_()),
+    }
+    log(f"[probes] floor: best {floor['threads']} threads {floor['device_us']:.3f} us/launch, "
+        f"plain {results['floor']['plain_ms'] * 1e3:.3f} us, zero_ of the (4, N) record "
+        f"{results['floor']['library_ms'] * 1e3:.3f} us, bound {c_bound[0] * 1e3:.3f} us")
+
+    # F: bit-equal to the plain recurrence, at a small K and at the timed
+    # full K, on seeded inputs that differ element by element. One fused
+    # multiply-add rounds as the plain step does: a * c + b is exact in
+    # float64 for these magnitudes, then rounded once to float32.
+    x = fp["x"]
+    if x.unique().numel() < x.numel() // 2:
+        raise AssertionError("fma_peak's inputs are not distinct enough to show indexing faults")
+    check_equal("fma_peak K=512", (fma_peak(x, 512),), (fma_peak_plain(x, 512),))
+    t0 = time.perf_counter()
+    big_plain = fma_peak_plain(x, fp["k"])
+    sync(dev)
+    f_plain_ms = (time.perf_counter() - t0) * 1e3
+    check_equal(f"fma_peak K={fp['k']}", (fp["out"],), (big_plain,))
+    moved = float(((big_plain - fma_peak_plain(x, 64)).abs() / big_plain.abs()).min())
+    log(f"[probes] fma_peak: bit-equal to its plain recurrence at K=512 and K={fp['k']} "
+        f"(the K-64 FMAs moved every output by >= {moved:.3g} relative); "
+        f"{fp['tflops']:.3f} TFLOP/s, plain {f_plain_ms:.1f} ms")
+    f_bound = bound(2 * nbytes(x), fma_flops(x, fp["k"]) // 2)  # one instruction an FMA
+    results["fma_peak"] = {"launches": launches["fma_peak"], "max_abs_err": 0.0,
+                           "ms": fp["ms"], "plain_ms": f_plain_ms, "bound_ms": f_bound[0],
+                           "bound_by": f_bound[1], "library_ms": None, "tflops": fp["tflops"]}
+
+    # A: against brute force on 65,536 subsampled rays (any: the verdict
+    # of a closest hit nearer than the any bound)
+    errs = []
+    for name, b in built.items():
+        sc = b.scene
+        for kind in ("primary", "incoherent"):
+            r = mt[name][kind]
+            idx = subsample(r["o"].shape[0], 65536).to(dev)
+            so, sd = r["o"][idx], r["d"][idx]
+            lim = r["closest"]["t_lim"][idx]
+            p = trace_rays_bruteforce(sc.tri_v0, sc.tri_e1, sc.tri_e2, so, sd, lim)
+            errs.append(compare_trace(f"{name} {kind} closest (65,536 of {r['o'].shape[0]})",
+                                      pick(r["closest"]["hits"], idx), p, lim))
+            near = (p.tri >= 0) & (p.t < micro_trace.ANY_BOUND)
+            p_any = RayHits(p.t, torch.where(near, p.tri, -1), p.u, p.v)
+            errs.append(compare_trace(f"{name} {kind} any", pick(r["any"]["hits"], idx),
+                                      p_any, r["any"]["t_lim"][idx]))
+    results["trace"]["max_abs_err"] = max(results["trace"]["max_abs_err"], *errs)
+
+    # D: full and count bit-equal to kernel A, boxes/top the miss record,
+    # count's columns equal to the plain walk
+    for name, b in built.items():
+        for kind in ("primary", "incoherent"):
+            r, a_hits = ab[name][kind], mt[name][kind]["closest"]["hits"]
+            check_equal(f"{name} {kind} full vs kernel A", r["full"]["hits"], a_hits)
+            check_equal(f"{name} {kind} count vs kernel A", r["count"]["hits"], a_hits)
+            for mode in ("boxes", "top"):
+                check_equal(f"{name} {kind} {mode}", r[mode]["hits"], miss_record(r[mode]["t_lim"]))
+            full_set = name == "city" and kind == "primary"
+            idx = torch.arange(r["o"].shape[0], device=dev) if full_set else \
+                subsample(r["o"].shape[0], 4096).to(dev)
+            t0 = time.perf_counter()
+            walk, cnt = trace_rays_bvh(b.tables.nodes, b.scene, r["o"][idx], r["d"][idx],
+                                       r["full"]["t_lim"][idx], count=True)
+            sync(dev)
+            walk_ms = (time.perf_counter() - t0) * 1e3
+            k_cnt = r["count"]["counts"]
+            check_equal(f"{name} {kind} count columns vs trace_rays_bvh",
+                        (k_cnt.nodes[idx], k_cnt.leaves[idx]), (cnt.nodes, cnt.leaves))
+            check_equal(f"{name} {kind} trace_rays_bvh hits vs kernel A", walk,
+                        pick(a_hits, idx))
+            st = r["count"]["stats"]
+            log(f"[probes] {name} {kind}: node visits/ray mean {st['nodes']['mean']:.2f} "
+                f"p50 {st['nodes']['p50']:.0f} p95 {st['nodes']['p95']:.0f} max "
+                f"{st['nodes']['max']:.0f}; leaf visits/ray mean {st['leaves']['mean']:.2f}; "
+                f"node visits/1024-ray block mean {st['block_nodes']['mean']:.0f} max "
+                f"{st['block_nodes']['max']:.0f}; "
+                + ", ".join(f"{m} {r[m]['ms']:.4f} ms" for m in ablate_kernel.MODES))
+            # kernel A on these rays beside its bound, and beside the traffic
+            # of every visit (32 B a node, 36 B a triangle, 44 B of ray I/O)
+            # and its instructions at kernel F's measured rate (2 FLOPs an
+            # FMA instruction)
+            n_k = r["o"].shape[0]
+            a_b = trace_bound(b.tables.nodes, b.scene, n_k, k_cnt)
+            visits = (int(k_cnt.nodes.sum()), int(k_cnt.leaves.sum()))
+            traffic = visits[0] * 32 + visits[1] * 36 + n_k * 44
+            ops = visits[0] * SLAB_OPS + visits[1] * MT_OPS
+            log(f"[probes] {name} {kind} kernel A closest "
+                f"{mt[name][kind]['closest']['ms']:.4f} ms: bound {a_b[0]:.4f} ms "
+                f"({a_b[1]}); per-visit traffic {traffic / 1e9:.4f} GB = "
+                f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; {ops / 1e9:.4f} "
+                f"G FP32 instructions = {ops / (fp['tflops'] / 2 * 1e12) * 1e3:.4f} ms at "
+                f"kernel F's {fp['tflops'] / 2:.2f} T instructions/s")
+            if full_set:
+                n_city = r["o"].shape[0]
+                a_b = trace_bound(b.tables.nodes, b.scene, n_city, r["count"]["counts"])
+                d_b = trace_bound(b.tables.nodes, b.scene, n_city, r["count"]["counts"],
+                                  out_bytes_per_ray=24)
+                results["trace"].update({"city_ms": mt[name][kind]["closest"]["ms"],
+                                         "city_bound_ms": a_b[0], "city_bound_by": a_b[1]})
+                results["trace_ablate"] = {
+                    "launches": launches["trace_ablate"], "max_abs_err": 0.0,
+                    "ms": r["count"]["ms"], "plain_ms": walk_ms, "bound_ms": d_b[0],
+                    "bound_by": d_b[1], "library_ms": None}
+
+    # E: every variant against kernel A on both ray sets (mt256 against
+    # brute force over its 128 triangles)
+    e_err = []
+    for name, b in built.items():
+        sc = b.scene
+        for kind in ("tiled", "incoherent"):
+            r = va[name][kind]
+            lim = r["threaded"]["t_lim"]
+            a_hits = b.tracer.trace(r["o"], r["d"], lim)
+            for v in PROBE_VARIANTS:
+                if v.startswith("mt"):
+                    k = int(v[2:])
+                    p = trace_rays_bruteforce(sc.tri_v0[:k], sc.tri_e1[:k], sc.tri_e2[:k],
+                                              r["o"], r["d"], lim)
+                else:
+                    p = a_hits
+                e_err.append(compare_trace(f"{name} {kind} {v} ({r[v]['ms']:.4f} ms, "
+                                           f"{r[v]['mrays']:.2f} Mrays/s)", r[v]["hits"], p, lim))
+    cb = built["cornell"]
+    r = va["cornell"]["tiled"]
+    lim = r["threaded"]["t_lim"]
+    _, cnt = trace_rays_bvh(cb.tables.nodes, cb.scene, r["o"], r["d"], lim, count=True)
+    e_b = trace_bound(cb.tables.nodes, cb.scene, r["o"].shape[0], cnt)
+    results["trace_variant"] = {
+        "launches": launches["trace_variant"], "max_abs_err": max(e_err),
+        "ms": r["ordered"]["ms"],
+        "plain_ms": cuda_ms(lambda: trace_rays_bruteforce(cb.scene.tri_v0, cb.scene.tri_e1,
+                                                          cb.scene.tri_e2, r["o"], r["d"], lim),
+                            reps=2),
+        "bound_ms": e_b[0], "bound_by": e_b[1], "library_ms": None,
+        "city_ms": va["city"]["tiled"]["ordered"]["ms"]}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from vkrt_tpu.utils import native
     from vkrt_tpu_torch import device as kdev
+    from vkrt_tpu_torch.utils import native
 
     dev = torch.device("cuda")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -363,25 +669,27 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             log(f"[build]   {line.strip()}")
     t0 = time.perf_counter()
-    ok = native.available()
-    log(f"[build] native SAH builder: {'loaded' if ok else 'MISSING'} "
-        f"({time.perf_counter() - t0:.2f} s)")
-    if not ok:
-        raise RuntimeError("native BVH builder did not load (make -C native)")
+    native.library()
+    log(f"[build] native SAH builder: {time.perf_counter() - t0:.2f} s")
 
     results = {}
-    phase_kernels(dev, results)
-    phase_main_path(dev, results)
-    phase_end_to_end(dev)
+    for name, phase in (("2-3 kernels", lambda: phase_kernels(dev, results)),
+                        ("4 main path", lambda: phase_main_path(dev, results)),
+                        ("5 end to end", lambda: phase_end_to_end(dev)),
+                        ("6 probes", lambda: phase_probes(dev, results))):
+        t0 = time.perf_counter()
+        phase()
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
 
-    kernels = [
-        {"name": "trace", "route": "cuda", "source": TRACE_SOURCE,
-         "replaces": TRACE_REPLACES, **results["trace"]},
-        {"name": "shade", "route": "cuda", "source": SHADE_SOURCE,
-         "replaces": SHADE_REPLACES, **results["shade"]},
-    ]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
-    print(json.dumps({"kernels": [{k: kk[k] for k in keys} for kk in kernels]}))
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                **results[name]} for name, (src, rep) in KERNELS.items()]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    for kk in kernels:
+        missing = [k for k in keys if k not in kk]
+        if missing:
+            raise AssertionError(f"kernel {kk['name']} lacks {missing}")
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

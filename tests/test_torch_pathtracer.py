@@ -102,7 +102,7 @@ def _render_port(ts, cam, corr):
 @pytest.mark.parametrize("corr", [True, False])
 def test_frames_match_jax(jit_shade_call, corr):
     js = jscene.make_cornell_box()
-    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()})
+    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
     img_j, rays_j, jcam = _render_jax(js, corr)
     cam = camera_from_numpy({k: np.asarray(v) for k, v in jcam._asdict().items()})
     img_t, rays_t = _render_port(ts, cam, corr)
@@ -124,7 +124,7 @@ def test_engine_and_app_smoke(tmp_path):
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.scene import make_cornell_box
 
-    eng = Engine(make_cornell_box(), 32, 24, RenderSettings(rt_mode=1, depth=2))
+    eng = Engine(make_cornell_box(device="cpu"), 32, 24, RenderSettings(rt_mode=1, depth=2))
     img = eng.render(2)
     assert img.shape == (24, 32, 3) and img.dtype == np.uint8 and img.mean() > 10
     assert eng.frame == 1 and eng.total_rays > 32 * 24 * 2
@@ -135,7 +135,7 @@ def test_engine_and_app_smoke(tmp_path):
     eng.update_settings(eng.settings.replace(depth=3))
     assert eng.frame == -1
     with pytest.raises(NotImplementedError, match="hybrid mode"):
-        Engine(make_cornell_box(), 32, 24, RenderSettings(rt_mode=0))
+        Engine(make_cornell_box(device="cpu"), 32, 24, RenderSettings(rt_mode=0))
 
     out = tmp_path / "pt.png"
     rc = app.main(["--procedural", "cornell", "--mode", "path", "--width", "32",

@@ -75,7 +75,7 @@ def _states(ts, corr: bool):
 @pytest.fixture(scope="module")
 def scenes():
     js = jscene.make_cornell_box()
-    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()})
+    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
     return js, ts, {c: _states(ts, c) for c in (True, False)}
 
 

@@ -49,7 +49,8 @@ def _rays(kind: str, seed: int = 0, n: int = N_RAYS):
 
 def _scenes(kind: str):
     js = jscene.make_cornell_box() if kind == "box" else jscene.make_random_soup(2048)
-    return js, scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()})
+    return js, scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()},
+                                device="cpu")
 
 
 def check_against_pallas(kind: str):
@@ -181,7 +182,7 @@ def _traverse_reference(nodes, v0, e1, e2, o, d, t_lim, t_min):
 @pytest.mark.parametrize("kind", ["box", "soup"])
 def test_threaded_bvh_layout_vs_bruteforce(kind):
     js = jscene.make_cornell_box() if kind == "box" else jscene.make_random_soup(512, 4)
-    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()})
+    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
     arrs = build_bvh_arrays(ts)
     nodes = pack_bvh_nodes(*arrs)
     # every real triangle is one leaf; skip links stay in range

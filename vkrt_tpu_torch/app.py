@@ -16,14 +16,14 @@ import os
 import sys
 import time
 
-from vkrt_tpu.config import (
+from vkrt_tpu_torch.config import (
     DEFAULT_CLEAR_COLOR,
     EngineConfig,
     RenderSettings,
     load_config,
     resolve_scene_path,
 )
-from vkrt_tpu.utils.png import write_png
+from vkrt_tpu_torch.utils.png import write_png
 
 
 def build_argparser() -> argparse.ArgumentParser:

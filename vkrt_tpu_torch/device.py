@@ -2,9 +2,10 @@
 
 ``csrc/*.cu`` compile with ``nvcc`` into ``build/libvkrt_kernels.so`` at the
 first CUDA launch, keyed by a hash of the sources and flags, and load with
-``ctypes``. Each C entry point takes plain pointers and the CUDA stream and
-returns ``cudaGetLastError()``; ``check`` turns a non-zero code into an
-exception. Nothing here runs at import: the CPU tests import every module
+``ctypes``. Each source compiles in its own ``nvcc`` process, all started
+together, and one ``nvcc`` links the objects. Each C entry point takes
+plain pointers and the CUDA stream and returns ``cudaGetLastError()``;
+``check`` turns a non-zero code into an exception. Nothing here runs at import: the CPU tests import every module
 of the package on a machine with no ``nvcc``.
 """
 
@@ -27,7 +28,7 @@ LIB_PATH = BUILD / "libvkrt_kernels.so"
 # no --use_fast_math: it changes sqrt, division, sin and cos
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -57,6 +58,39 @@ _SIGNATURES = {
         _F, _I, _F, _F,      # hitdist weight, accumulate, t_min, t_max
         _F, _F, _F, _F, _F,  # clear rgb, clamp lo, clamp hi
         _P, _P, _P, _P,      # out carry, seed, next rays, shadow rays
+        _P,                  # stream
+    ],
+    "vkrt_floor": [
+        _P, _L, _L,          # o, stride lane, stride component
+        _P, _L, _L,          # d, stride lane, stride component
+        _P, _I, _I,          # t_lim, n, threads per block
+        _P, _P, _P, _P,      # out t, tri, u, v
+        _P,                  # stream
+    ],
+    "vkrt_fma_peak": [
+        _P, _P, _I, _I,      # x, out, n, iterations (64 FMAs each)
+        _P,                  # stream
+    ],
+    "vkrt_trace_ablate": [
+        _I,                  # mode
+        _P, _I, _P, _I,      # nodes (M, 8), n_nodes, depth (M,), cut depth
+        _P, _P, _P,          # tri v0, e1, e2 (T, 3)
+        _P, _L, _L,          # o, stride lane, stride component
+        _P, _L, _L,          # d, stride lane, stride component
+        _P, _I, _F, _I,      # t_lim, n, t_min, any_hit
+        _P, _P, _P, _P,      # out t, tri, u, v
+        _P,                  # counts (2, N) or null
+        _P,                  # stream
+    ],
+    "vkrt_trace_variant": [
+        _I, _I,              # variant, tree depth (ordered refuses > 64)
+        _P, _I,              # nodes (M, 8), n_nodes
+        _P, _I, _I,          # cut node ids, n_cut, k_tris
+        _P, _P, _P,          # tri v0, e1, e2 (T, 3)
+        _P, _L, _L,          # o, stride lane, stride component
+        _P, _L, _L,          # d, stride lane, stride component
+        _P, _I, _F,          # t_lim, n, t_min
+        _P, _P, _P, _P,      # out t, tri, u, v
         _P,                  # stream
     ],
 }
@@ -96,10 +130,19 @@ def source_key() -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; (returncode, output) of each."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build() -> dict:
-    """Compile the kernels unless the library for these sources exists.
-    Returns {"seconds", "cached", "log"} (the log holds ptxas's register
-    and spill report)."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all at once, then one link. Returns
+    {"seconds", "cached", "log"} (the log holds ptxas's register and spill
+    report)."""
     key = source_key()
     stamp = LIB_PATH.with_suffix(".so.sha256")
     log_path = BUILD / "nvcc.log"
@@ -107,16 +150,23 @@ def build() -> dict:
         log = log_path.read_text() if log_path.exists() else ""
         return {"seconds": 0.0, "cached": True, "log": log}
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD / f"libvkrt_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in _sources()]]
+    nvcc = nvcc_path()
+    pid = os.getpid()
+    objs = [BUILD / f"{p.stem}.{pid}.o" for p in _sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(p), "-o", str(obj)]
+                        for p, obj in zip(_sources(), objs)])
+    tmp = BUILD / f"libvkrt_kernels.{pid}.so"
+    if all(rc == 0 for rc, _ in results):
+        results += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    log = res.stdout + res.stderr
+    log = "".join(out for _, out in results)
     log_path.write_text(log)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    bad = [rc for rc, _ in results if rc != 0]
+    if bad:
+        raise RuntimeError(f"nvcc failed ({bad[0]}):\n{log}")
     os.replace(tmp, LIB_PATH)
     stamp.write_text(key)
     return {"seconds": seconds, "cached": False, "log": log}

@@ -24,12 +24,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from vkrt_tpu.config import DEFAULT_CLEAR_COLOR, RenderSettings
+from vkrt_tpu_torch.config import DEFAULT_CLEAR_COLOR, RenderSettings
 from vkrt_tpu_torch.models import post as post_mod
 from vkrt_tpu_torch.models.pathtracer import pathtrace_frame
 from vkrt_tpu_torch.ops.rng import tea
 from vkrt_tpu_torch.ops.trace import make_tracer
-from vkrt_tpu_torch.scene import SceneTensors
+from vkrt_tpu_torch.scene import SceneTensors, require_untextured
 from vkrt_tpu_torch.utils.camera import Camera, pixel_coords, tile_perm, untile
 
 HYBRID_ERROR = "hybrid mode is ported in a later PR"
@@ -47,6 +47,7 @@ class Engine:
     ):
         if settings.rt_mode != 1:
             raise NotImplementedError(HYBRID_ERROR)
+        require_untextured(scene)
         self.scene = scene
         self.device = scene.device
         self.width = width

@@ -19,6 +19,7 @@ import torch
 from vkrt_tpu_torch.ops.cuda.shade import bounce_chain_packed
 from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
 from vkrt_tpu_torch.ops.rng import MASK32, rnd, seed_pixels
+from vkrt_tpu_torch.scene import require_untextured
 from vkrt_tpu_torch.utils.camera import generate_rays
 
 
@@ -134,7 +135,9 @@ def pathtrace_frame(scene, tracer, cam, frame: int, accum, clear_color, *,
                     seeds=None):
     """One path-traced frame + accumulation (hello_vulkan.cpp:1423-1448).
     ``accum``: (H*W, 3) running image in the pixel order of ``pix``.
-    Returns (new_accum, rays)."""
+    Returns (new_accum, rays). Raises on a textured scene (textures are not
+    sampled yet; the answer is decided once per scene, no sync a frame)."""
+    require_untextured(scene)
     res = trace_pixels(
         scene, tracer, cam, width, height, frame, clear_color,
         samples=samples, depth=depth, clamp_weights=clamp_weights,

@@ -1,7 +1,7 @@
 """Kernel A: the CUDA trace kernel (``csrc/trace.cu``) and its tracer.
 
 Replaces ``vkrt_tpu/ops/pallas/trace.py::_trace_kernel``. The tree is the
-threaded preorder SAH BVH of ``vkrt_tpu.utils.native.build_sah_bvh`` (one
+threaded preorder SAH BVH of ``utils.native.build_sah_bvh`` (one
 triangle per leaf, skip links), built on the host and packed into one
 (M, 8) f32 node table. Leaves carry scene triangle ids, so there is no
 ``tri_remap``. The TPU kernel's cluster tree, vote words, pre-pivoted
@@ -20,11 +20,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from vkrt_tpu.utils import native
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.ops.intersect import T_MIN
 from vkrt_tpu_torch.ops.trace import RayHits, Tracer, trace_rays_bruteforce
 from vkrt_tpu_torch.scene import SceneTensors
+from vkrt_tpu_torch.utils import native
 
 
 def pack_bvh_nodes(node_min, node_max, node_skip, node_tri) -> np.ndarray:
@@ -41,12 +41,8 @@ def pack_bvh_nodes(node_min, node_max, node_skip, node_tri) -> np.ndarray:
 
 def build_bvh_arrays(scene: SceneTensors):
     """(node_min, node_max, node_skip, node_tri) from the native SAH
-    builder. Raises when the native library is missing: there is no
-    Morton fallback."""
-    if not native.available():
-        raise RuntimeError(
-            "native BVH builder unavailable: build it with `make -C native`"
-        )
+    builder (compiled at first use; a failed build raises: there is no
+    Morton fallback)."""
     arrs = [np.asarray(t.detach().cpu(), np.float32)
             for t in (scene.tri_v0, scene.tri_e1, scene.tri_e2)]
     res = native.build_sah_bvh(*arrs)
@@ -66,6 +62,34 @@ def _check_f32(name, t, shape):
         raise ValueError(f"{name}: want f32 {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
 
 
+def check_rays(name: str, o, d, t_lim, tables=()) -> int:
+    """Validate a CUDA launch's rays ((N,3) o and d, maybe strided; (N,)
+    contiguous t_lim) and contiguous tables on their device. Returns N."""
+    if o.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {o.device}")
+    n = o.shape[0]
+    _check_f32("o", o, (n, 3))
+    _check_f32("d", d, (n, 3))
+    _check_f32("t_lim", t_lim, (n,))
+    if not t_lim.is_contiguous():
+        raise ValueError("t_lim must be contiguous")
+    for t in (d, t_lim) + tuple(tables):
+        if t.device != o.device:
+            raise ValueError(f"{name}: tensor on {t.device}, rays on {o.device}")
+    if not all(t.is_contiguous() for t in tables):
+        raise ValueError(f"{name}: scene tables must be contiguous")
+    return n
+
+
+def check_scene(nodes: torch.Tensor, scene: SceneTensors):
+    """The node table and triangle tables a traversal kernel reads."""
+    n_tris = scene.tri_v0.shape[0]
+    _check_f32("nodes", nodes, (nodes.shape[0], 8))
+    for name in ("tri_v0", "tri_e1", "tri_e2"):
+        _check_f32(name, getattr(scene, name), (n_tris, 3))
+    return (nodes, scene.tri_v0, scene.tri_e1, scene.tri_e2)
+
+
 def trace_kernel(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
                  t_min: float = T_MIN, any_hit: bool = False) -> RayHits:
     """Trace (N,3) o and d with (N,) limits; the kernel's contract (see
@@ -74,24 +98,7 @@ def trace_kernel(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
     if o.device.type == "cpu":
         return trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2,
                                      o, d, t_lim, t_min)
-    if o.device.type != "cuda":
-        raise ValueError(f"trace_kernel: unsupported device {o.device}")
-    n = o.shape[0]
-    _check_f32("o", o, (n, 3))
-    _check_f32("d", d, (n, 3))
-    _check_f32("t_lim", t_lim, (n,))
-    if not t_lim.is_contiguous():
-        raise ValueError("t_lim must be contiguous")
-    n_tris = scene.tri_v0.shape[0]
-    _check_f32("nodes", nodes, (nodes.shape[0], 8))
-    for name in ("tri_v0", "tri_e1", "tri_e2"):
-        _check_f32(name, getattr(scene, name), (n_tris, 3))
-    tabs = (nodes, scene.tri_v0, scene.tri_e1, scene.tri_e2)
-    for t in (d, t_lim) + tabs:
-        if t.device != o.device:
-            raise ValueError(f"trace_kernel: tensor on {t.device}, rays on {o.device}")
-    if not all(t.is_contiguous() for t in tabs):
-        raise ValueError("trace_kernel: scene tables must be contiguous")
+    n = check_rays("trace_kernel", o, d, t_lim, check_scene(nodes, scene))
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)

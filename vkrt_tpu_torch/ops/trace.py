@@ -8,6 +8,9 @@ Port of ``vkrt_tpu/ops/trace.py``. Two tracers share one API:
 * ``CudaTracer`` (``ops/cuda/trace.py``) — the CUDA trace kernel over a
   threaded SAH BVH, for a scene on a CUDA device.
 
+``trace_rays_bvh`` is that kernel's walk in plain torch: the plain version
+of the trace probes' visit counts (``ops/cuda/trace_variants.py``).
+
 Both implement ``trace`` with the trace kernel's contract (the Pallas
 kernel's, ``vkrt_tpu/ops/pallas/trace.py``): per-lane limit ``t_lim``, a
 negative limit is a first-hit-kills lane bounded by ``|t_lim|``, and a miss
@@ -20,9 +23,12 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from vkrt_tpu_torch.ops.intersect import T_MIN, mt_block
+from vkrt_tpu_torch.ops.intersect import (
+    _DET_EPS, T_MIN, _cross, _dot, mt_block, safe_inv_dir,
+)
 from vkrt_tpu_torch.scene import SceneTensors
 
 TRI_BLOCK = 256  # triangles per step of the brute-force scan
@@ -114,6 +120,96 @@ def trace_any_bruteforce(tri_v0, tri_e1, tri_e2, orig, direction, t_min, t_max):
     return trace_closest_bruteforce(
         tri_v0, tri_e1, tri_e2, orig, direction, t_min, t_max
     ).hit
+
+
+# kernel A's slab widening 1 + 2*gamma(3), rounded to f32 as nvcc folds it
+SLAB_SCALE = float(np.float32(1.0) + np.float32(2.0) * np.float32(1.7881396e-7))
+
+
+class BvhCounts(NamedTuple):
+    """Per-ray work of a threaded-BVH walk."""
+
+    nodes: torch.Tensor   # (N,) int32 slab tests
+    leaves: torch.Tensor  # (N,) int32 Moller-Trumbore tests
+
+
+def unpack_nodes(nodes: torch.Tensor):
+    """The (M, 8) node table -> (lo (M,3), hi (M,3), skip (M,) i64,
+    tri (M,) i64) with tri = -1 at inner nodes."""
+    bits = nodes.contiguous().view(torch.int32)
+    return nodes[:, 0:3], nodes[:, 4:7], bits[:, 3].long(), bits[:, 7].long()
+
+
+def trace_rays_bvh(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
+                   t_min: float = T_MIN, any_hit: bool = False,
+                   count: bool = False):
+    """Kernel A's walk in plain torch, vectorised over rays: the
+    counterpart of ``vkrt_tpu/ops/trace.py::trace_closest_bvh`` /
+    ``trace_any_bvh`` with kernel A's contract (per-lane ``t_lim``,
+    first-hit-kills lanes, the miss record) and its widened slab test, so
+    with ``count=True`` its visit counts are the kernel's. One current node
+    per ray; each step advances every live ray by one node (box hit at an
+    inner node -> node + 1, otherwise the skip link) until all are done.
+    Returns ``RayHits``, or ``(RayHits, BvhCounts)`` with ``count``."""
+    lo, hi, skip, tri_of = unpack_nodes(nodes)
+    n_nodes = nodes.shape[0]
+    n = o.shape[0]
+    dev = o.device
+    inv = safe_inv_dir(d)
+    t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    best = t_lim.abs().clone()
+    btri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    bu = torch.zeros(n, dtype=torch.float32, device=dev)
+    bv = torch.zeros(n, dtype=torch.float32, device=dev)
+    kill = (t_lim < 0) | any_hit
+    visits = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaves = torch.zeros(n, dtype=torch.int32, device=dev)
+    ray = torch.arange(n, device=dev)  # live rays
+    cur = torch.zeros(n, dtype=torch.long, device=dev)  # their nodes
+    while ray.numel():
+        oa, ia = o[ray], inv[ray]
+        t0 = (lo[cur] - oa) * ia
+        t1 = (hi[cur] - oa) * ia
+        mn, mx = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        tnear = torch.fmax(torch.fmax(torch.fmax(mn[:, 0], mn[:, 1]), mn[:, 2]), t_min_t)
+        tfar = torch.fmin(torch.fmin(torch.fmin(mx[:, 0], mx[:, 1]), mx[:, 2]), best[ray])
+        box = tnear <= tfar * SLAB_SCALE
+        tri = tri_of[cur]
+        leaf = box & (tri >= 0)
+        visits[ray] += 1
+        stop = torch.zeros_like(box)
+        if bool(leaf.any()):
+            r, t = ray[leaf], tri[leaf]
+            leaves[r] += 1
+            hit, th, uh, vh = _mt_pairs(o[r], d[r], scene.tri_v0[t], scene.tri_e1[t],
+                                        scene.tri_e2[t], t_min_t, best[r])
+            r, t = r[hit], t[hit]
+            best[r] = th[hit]
+            btri[r] = t.to(torch.int32)
+            bu[r] = uh[hit]
+            bv[r] = vh[hit]
+            stop[leaf.nonzero()[:, 0][hit]] = kill[r]
+        nxt = torch.where(box & (tri < 0), cur + 1, skip[cur])
+        live = (nxt < n_nodes) & ~stop
+        ray, cur = ray[live], nxt[live]
+    hits = RayHits(best, btri, bu, bv)
+    return (hits, BvhCounts(visits, leaves)) if count else hits
+
+
+def _mt_pairs(o, d, v0, e1, e2, t_min, t_max):
+    """``mt_block`` for (A,3) rays against (A,3) triangles, pair by pair,
+    in its operation order."""
+    pvec = _cross(d, e2)
+    det = _dot(e1, pvec)
+    ok = det.abs() > _DET_EPS
+    inv_det = torch.where(ok, 1.0 / det, torch.zeros_like(det))
+    tvec = o - v0
+    u = _dot(tvec, pvec) * inv_det
+    qvec = _cross(tvec, e1)
+    v = _dot(d, qvec) * inv_det
+    t = _dot(e2, qvec) * inv_det
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    return hit, t, u, v
 
 
 def _hit_info(h: RayHits) -> HitInfo:

@@ -1,9 +1,14 @@
 """Scene representation: flat SoA tensors (port of ``vkrt_tpu/scene.py``).
 
 The numpy baking of the JAX package is kept line for line, so both packages
-build equal arrays from one glTF document or triangle soup. This slice
-covers untextured scenes: a scene whose materials reference any texture
-raises ``NotImplementedError`` (textures come with slice 2 of the port).
+build equal arrays from one glTF document or triangle soup, textured scenes
+and their bf16 mip atlas included. Shading a textured scene comes with a
+later slice: ``Engine`` and ``pathtrace_frame`` refuse one with
+``TEXTURED_ERROR``, so such a scene is never rendered without its textures.
+
+Every constructor takes ``device``: ``None`` means the card
+(``device.select()``, which raises without one); the CPU tests pass
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -13,12 +18,14 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
-from vkrt_tpu.config import EngineConfig, resolve_scene_path
-from vkrt_tpu.utils import gltf as gltf_mod
+from vkrt_tpu_torch.config import EngineConfig, resolve_scene_path
+from vkrt_tpu_torch.device import select
+from vkrt_tpu_torch.utils import gltf as gltf_mod
 
 TRI_PAD = 64  # pad triangle count to a lane-friendly multiple
-TEXTURED_ERROR = "textured scenes: slice 2"
+TEXTURED_ERROR = "shading textured scenes is ported in a later slice"
 
 
 class SceneTensors(NamedTuple):
@@ -81,6 +88,9 @@ FALLBACK_LIGHTS = [
 ]
 
 _TEX_SLOTS = ("mat_base_tex", "mat_mr_tex", "mat_normal_tex", "mat_emissive_tex")
+# whether a scene is textured, decided once: keyed by its mat_base_tex
+# tensor, the value holds the other three slot tensors and the answer
+_TEXTURED = WeakIdKeyDictionary()
 
 
 def srgb_to_linear(c: np.ndarray) -> np.ndarray:
@@ -236,6 +246,11 @@ def _textured(arrays: dict) -> bool:
     return any((np.asarray(arrays[k]) >= 0).any() for k in _TEX_SLOTS)
 
 
+def _device(device) -> torch.device:
+    """``None`` -> the card (raises without one); else as given."""
+    return select() if device is None else torch.device(device)
+
+
 def _to_tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes arrays from the JAX package
@@ -246,9 +261,11 @@ def _to_tensor(x, device) -> torch.Tensor:
 def scene_from_numpy(d: dict, device=None) -> SceneTensors:
     """``SceneArrays._asdict()`` (after ``np.asarray``) -> SceneTensors.
     The state carry-over by which tests give both packages one scene."""
-    if _textured(d):
-        raise NotImplementedError(TEXTURED_ERROR)
-    return SceneTensors(**{k: _to_tensor(d[k], device) for k in SceneTensors._fields})
+    device = _device(device)
+    scene = SceneTensors(**{k: _to_tensor(d[k], device) for k in SceneTensors._fields})
+    slots = [getattr(scene, k) for k in _TEX_SLOTS]
+    _TEXTURED[slots[0]] = (slots[1:], _textured(d))  # from the host arrays
+    return scene
 
 
 def build_scene(doc: gltf_mod.GltfDocument, pad_to: int = TRI_PAD,
@@ -256,6 +273,7 @@ def build_scene(doc: gltf_mod.GltfDocument, pad_to: int = TRI_PAD,
     """Flatten a parsed glTF document into SceneTensors (bake world xforms).
     ``tri_mat``: optional per-triangle material ids overriding the
     primitives' (procedural soups)."""
+    device = _device(device)
     all_v0, all_v1, all_v2 = [], [], []
     all_n, all_tg, all_uv, all_mat = [], [], [], []
     for prim in doc.primitives:
@@ -365,8 +383,23 @@ def load_scene(path: str, device=None) -> SceneTensors:
 
 
 def scene_is_textured(scene: SceneTensors) -> bool:
-    """True if any material references a texture."""
-    return _textured({k: getattr(scene, k).cpu().numpy() for k in _TEX_SLOTS})
+    """True if any material references a texture. Decided once per set of
+    texture-slot columns: ``scene_from_numpy`` records it from the host
+    arrays; a scene assembled otherwise reads its four (M,) columns back
+    once."""
+    slots = [getattr(scene, k) for k in _TEX_SLOTS]
+    known = _TEXTURED.get(slots[0])
+    if known is None or any(a is not b for a, b in zip(known[0], slots[1:])):
+        known = (slots[1:], _textured({k: t.cpu().numpy() for k, t in zip(_TEX_SLOTS, slots)}))
+        _TEXTURED[slots[0]] = known
+    return known[1]
+
+
+def require_untextured(scene: SceneTensors) -> None:
+    """Raise ``NotImplementedError(TEXTURED_ERROR)`` on a textured scene:
+    the shading entry points do not sample textures yet."""
+    if scene_is_textured(scene):
+        raise NotImplementedError(TEXTURED_ERROR)
 
 
 def scene_base_only_textured(scene: SceneTensors) -> bool:
@@ -409,6 +442,98 @@ def _box(center, half, rot_y: float = 0.0):
     tris += _quad(p[7], p[6], p[2], p[3])  # +y
     tris += _quad(p[0], p[1], p[5], p[4])  # -y
     return tris
+
+
+def _boxes(centers, halves, rots):
+    """Vectorized ``_box`` over N boxes: (N,3),(N,3),(N,) -> (N*12,3,3) f64
+    triangles, equal to ``np.concatenate([_box(c,h,r) for ...])`` (same
+    corner order, same rotate-then-translate op order)."""
+    centers = np.asarray(centers, np.float64)
+    halves = np.asarray(halves, np.float64)
+    rots = np.asarray(rots, np.float64)
+    signs = np.array(
+        [
+            [-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+            [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1],
+        ],
+        np.float64,
+    )
+    corners = signs[None, :, :] * halves[:, None, :]  # (N,8,3)
+    c, s = np.cos(rots), np.sin(rots)
+    zero, one = np.zeros_like(c), np.ones_like(c)
+    # _box's r = [[c,0,s],[0,1,0],[-s,0,c]]; corners @ r.T, batched
+    r = np.stack(
+        [
+            np.stack([c, zero, s], -1),
+            np.stack([zero, one, zero], -1),
+            np.stack([-s, zero, c], -1),
+        ],
+        axis=1,
+    )  # (N,3,3)
+    corners = np.matmul(corners, np.swapaxes(r, 1, 2))
+    corners = corners + centers[:, None, :]
+    # the 12 (a,b,c) corner index triples _box emits, in order
+    quads = [(4, 5, 6, 7), (1, 0, 3, 2), (5, 1, 2, 6),
+             (0, 4, 7, 3), (7, 6, 2, 3), (0, 1, 5, 4)]
+    tri_idx = np.array(
+        [t for a, b, c_, d in quads for t in ((a, b, c_), (a, c_, d))],
+        np.int64,
+    )  # (12,3)
+    return corners[:, tri_idx, :].reshape(-1, 3, 3)
+
+
+def _boxes_uvs(halves, tiles):
+    """Per-corner UVs of ``_boxes``' triangles: (N,3),(N,) -> (N*12,3,2)
+    f64, each face mapped 0..extent*tile so textures tile with world
+    size."""
+    halves = np.asarray(halves, np.float64)
+    tiles = np.asarray(tiles, np.float64)
+    hx, hy, hz = halves[:, 0], halves[:, 1], halves[:, 2]
+    # per-face (su, sv) extents: +z, -z, +x, -x, +y, -y
+    su = np.stack([2 * hx, 2 * hx, 2 * hz, 2 * hz, 2 * hx, 2 * hx], -1)
+    sv = np.stack([2 * hy, 2 * hy, 2 * hy, 2 * hy, 2 * hz, 2 * hz], -1)
+    su = su * tiles[:, None]  # (N,6)
+    sv = sv * tiles[:, None]
+    zero = np.zeros_like(su)
+    # quad corners a=(0,0) b=(su,0) c=(su,sv) d=(0,sv); tris (a,b,c),(a,c,d)
+    u = np.stack([zero, su, su, zero, su, zero], -1)   # (N,6,6)
+    v = np.stack([zero, zero, sv, zero, sv, sv], -1)
+    uv = np.stack([u, v], -1)                          # (N,6,6,2)
+    return uv.reshape(-1, 2, 3, 2).reshape(-1, 3, 2)
+
+
+def _procedural_textures():
+    """Checker / brick / window-grid images for the city stand-in."""
+    rng = np.random.default_rng(42)
+    checker = np.zeros((64, 64, 4), np.uint8)
+    checker[..., :3] = 110
+    checker[:32, :32, :3] = 190
+    checker[32:, 32:, :3] = 190
+    checker[..., 3] = 255
+
+    brick = np.full((64, 64, 4), 150, np.uint8)
+    brick[..., :3] = (160, 82, 60)
+    for row in range(0, 64, 16):
+        brick[row : row + 2, :, :3] = 200  # mortar lines
+        off = 0 if (row // 16) % 2 == 0 else 16
+        for col in range(off, 64, 32):
+            brick[row : row + 16, col : col + 2, :3] = 200
+    brick[..., :3] = np.clip(
+        brick[..., :3].astype(np.int16) + rng.integers(-12, 12, (64, 64, 1)), 0, 255
+    ).astype(np.uint8)
+    brick[..., 3] = 255
+
+    windows = np.full((64, 64, 4), 70, np.uint8)
+    windows[..., :3] = (90, 95, 105)
+    for row in range(4, 64, 16):
+        for col in range(4, 64, 16):
+            windows[row : row + 8, col : col + 8, :3] = (30, 40, 70)
+    windows[..., 3] = 255
+    return [
+        gltf_mod.GltfImage(checker, "checker"),
+        gltf_mod.GltfImage(brick, "brick"),
+        gltf_mod.GltfImage(windows, "windows"),
+    ]
 
 
 def scene_from_soup(
@@ -499,6 +624,73 @@ def make_random_soup(n_tris: int, seed: int = 0, extent: float = 1.0,
         gltf_mod.GltfLight(np.zeros(3, np.float32), np.ones(3, np.float32), 10.0, 0)
     ]
     return scene_from_soup(list(tris), [0] * n_tris, mats, lights, device=device)
+
+
+def make_city(grid: int = 16, seed: int = 7, device=None) -> SceneTensors:
+    """Sponza-substitute: a grid of boxes ("buildings") + floor + lights.
+
+    Gives the BVH a real workload (thousands to hundreds of thousands of
+    triangles with uneven density): ``grid=96`` is 143,568 triangles,
+    the trace probes' city."""
+    device = _device(device)  # before the host build: no card, no build
+    rng = np.random.default_rng(seed)
+    mats = [
+        gltf_mod.GltfMaterial(np.array([0.7, 0.7, 0.68, 1], np.float32),
+                              metallic_factor=0.0, base_color_texture=0),  # checker
+        gltf_mod.GltfMaterial(np.array([1.0, 1.0, 1.0, 1], np.float32),
+                              metallic_factor=0.0, base_color_texture=1),  # brick
+        gltf_mod.GltfMaterial(np.array([0.8, 0.8, 0.85, 1], np.float32),
+                              roughness_factor=0.2),
+        gltf_mod.GltfMaterial(np.array([1.0, 1.0, 1.0, 1], np.float32),
+                              metallic_factor=0.3, roughness_factor=0.4,
+                              base_color_texture=2),  # window grid
+    ]
+
+    # Parameter collection stays a Python loop (rng draw ORDER defines the
+    # scene); geometry/UV generation is one vectorized pass (_boxes /
+    # _boxes_uvs).
+    centers, halves, rots, box_mats, tiles = [], [], [], [], []
+
+    def add(center, half, mid, rot=0.0, tile=0.5):
+        centers.append(center)
+        halves.append(half)
+        rots.append(rot)
+        box_mats.append(mid)
+        tiles.append(tile)
+
+    span = grid * 2.0
+    add((0, -0.25, 0), (span, 0.25, span), 0, tile=0.25)  # ground slab
+    for i in range(grid):
+        for j in range(grid):
+            x = (i - grid / 2) * 4.0 + rng.uniform(-0.5, 0.5)
+            z = (j - grid / 2) * 4.0 + rng.uniform(-0.5, 0.5)
+            h = rng.uniform(1.0, 8.0)
+            w = rng.uniform(0.6, 1.6)
+            half = (w, h / 2, w)
+            rot = rng.uniform(0, 3.14)  # drawn before the material pick
+            add((x, h / 2, z), half, int(rng.integers(1, 4)), rot=rot)
+            if rng.uniform() < 0.3:  # rooftop structure
+                rh = (w * 0.4, 0.4, w * 0.4)
+                add((x, h + 0.4, z), rh, 2)
+
+    tris = _boxes(centers, halves, rots)
+    uvs = _boxes_uvs(halves, tiles)
+    mat_ids = np.repeat(np.asarray(box_mats, np.int32), 12).tolist()
+    lights = [
+        gltf_mod.GltfLight(
+            np.array([rng.uniform(-span / 2, span / 2), rng.uniform(6, 14),
+                      rng.uniform(-span / 2, span / 2)], np.float32),
+            np.ones(3, np.float32),
+            200.0,
+            0,
+        )
+        for _ in range(4)
+    ]
+    return scene_from_soup(
+        tris, mat_ids, mats, lights,
+        images=_procedural_textures(), uvs=np.asarray(uvs, np.float32),
+        device=device,
+    )
 
 
 def find_reference_cornell() -> Optional[str]:
