@@ -31,12 +31,17 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    record at every block size; F bit-equal to its plain recurrence at
    K = 512 and at the timed K = 65,536, on seeded inputs that differ
    element by element; kernel A against brute force on 65,536 subsampled
-   rays; D
-   ``full`` and ``count`` bit-equal to kernel A, ``boxes`` and ``top`` the
-   miss record, ``count``'s visit columns equal to ``trace_rays_bvh`` on
-   every city primary and on 4,096-ray subsamples of the other sets; E's
+   rays (no other winner at an equal t is left to excuse: the count is
+   printed and must be 0); D ``full`` and ``count`` bit-equal to kernel A,
+   ``boxes`` and ``top`` the miss record, ``count``'s visit columns equal
+   to the plain front-to-back walk (``trace_rays_bvh_ordered``) on every
+   city primary and on 4,096-ray subsamples of the other sets; E's
    variants against kernel A (``mt128`` against brute force over its 128
-   triangles) by phase 2's rule.
+   triangles) by phase 2's rule, equal-t ties allowed. For kernel A on both
+   scenes and all four ray sets (closest / any x primary / incoherent) a
+   line gives its time beside E ``threaded``'s (the stackless walk that was
+   kernel A's first design) on the same rays, the visits a ray and the SIMT
+   efficiency of both walks, and both bounds.
 
 The last lines are a JSON object of the kernels (each with its time, its
 plain version's time, its bound and the one PyTorch call's time where one
@@ -105,23 +110,35 @@ def bound(n_bytes: float, instrs: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def trace_bound(nodes, scene, n_rays: int, counts, out_bytes_per_ray: int = 16):
-    """Bound of a traversal over ``n_rays`` rays: each input read once (node
-    table, triangle tables, 7 floats a ray), each output written once, and
-    the FP32 instructions of the slab and Moller-Trumbore tests this run's
-    walk made (``counts``, a BvhCounts)."""
-    n_bytes = (nbytes(nodes, scene.tri_v0, scene.tri_e1, scene.tri_e2)
-               + n_rays * (28 + out_bytes_per_ray))
+def trace_bound(tables, n_rays: int, counts, out_bytes_per_ray: int = 16):
+    """Bound of a traversal over ``n_rays`` rays: each input read once (the
+    node and triangle ``tables`` the walk reads, 7 floats a ray), each
+    output written once, and the FP32 instructions of the slab and
+    Moller-Trumbore tests this run's walk made (``counts``, a BvhCounts)."""
+    n_bytes = nbytes(*tables) + n_rays * (28 + out_bytes_per_ray)
     instrs = (int(counts.nodes.sum()) * SLAB_OPS + int(counts.leaves.sum()) * MT_OPS)
     return bound(n_bytes, instrs)
 
 
-def compare_trace(name, k, p, t_lim) -> float:
+def walk_tables(bvh):
+    """What kernels A and D read of a scene: its record tables."""
+    return (bvh.nodes, bvh.tris)
+
+
+def threaded_tables(bvh, scene):
+    """What kernel E's variants read: the threaded table and the scene's
+    triangle tables."""
+    return (bvh.threaded, scene.tri_v0, scene.tri_e1, scene.tri_e2)
+
+
+def compare_trace(name, k, p, t_lim, ties: bool = True) -> float:
     """Kernel hits ``k`` against plain hits ``p`` (RayHits). Verdicts equal
     on >= 99.99% of lanes; on closest lanes where both hit, triangle ids
-    equal except at equal-t ties, t within 1e-5 relative, u and v within
-    1e-5 absolute. First-hit-kills lanes (t_lim < 0) promise only their
-    verdict. Returns the max abs t error on compared lanes."""
+    equal except at equal-t ties (``ties`` False: equal on every lane, for a
+    kernel that decides its ties as the plain version does), t within 1e-5
+    relative, u and v within 1e-5 absolute. First-hit-kills lanes
+    (t_lim < 0) promise only their verdict. Returns the max abs t error on
+    compared lanes."""
     kt, ktri, ku, kv = (x.cpu().numpy() for x in k)
     pt, ptri, pu, pv = (x.cpu().numpy() for x in p)
     lim = t_lim.cpu().numpy()
@@ -135,13 +152,15 @@ def compare_trace(name, k, p, t_lim) -> float:
     err_t = float(np.abs(kt - pt)[closest].max(initial=0.0))
     log(f"[trace] {name}: {len(lim)} lanes, hit {kh.mean():.4f}, verdict agree "
         f"{agree:.6f}, closest both-hit {closest.sum()}, same tri "
-        f"{same.sum()}, max rel t {rel[closest].max(initial=0.0):.3g}, max |du| "
+        f"{same.sum()} (other winners {int((closest & ~same).sum())}), max rel t {rel[closest].max(initial=0.0):.3g}, max |du| "
         f"{np.abs(ku - pu)[same].max(initial=0.0):.3g}, max |dv| "
         f"{np.abs(kv - pv)[same].max(initial=0.0):.3g}")
     if agree < 0.9999:
         raise AssertionError(f"{name}: verdicts agree on {agree:.6f} < 0.9999")
     if not tie_ok.all():
         raise AssertionError(f"{name}: {int((~tie_ok).sum())} other winners at unequal t")
+    if not ties and (closest & ~same).any():
+        raise AssertionError(f"{name}: {int((closest & ~same).sum())} other winners at equal t")
     if (rel[closest] > 1e-5).any():
         raise AssertionError(f"{name}: t beyond 1e-5 relative on {int((rel[closest] > 1e-5).sum())} lanes")
     if (np.abs(ku - pu)[same] > 1e-5).any() or (np.abs(kv - pv)[same] > 1e-5).any():
@@ -220,14 +239,15 @@ def phase_kernels(dev, results):
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer, trace_kernel
     from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
     from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
-    from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce, trace_rays_bvh
+    from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce, trace_rays_bvh_ordered
     from vkrt_tpu_torch.scene import load_cornell, make_random_soup
     from vkrt_tpu_torch.utils.camera import Camera, generate_rays, pixel_coords, tile_perm
 
     scene = load_cornell(device=dev)
     tracer = make_cuda_tracer(scene)
     log(f"[scene] {scene.num_tris} triangles, {scene.num_lights} lights, "
-        f"{tracer.nodes.shape[0]} BVH nodes")
+        f"{tracer.bvh.nodes.shape[0]} child-box records, {tracer.bvh.tris.shape[0]} "
+        f"triangle records, depth {tracer.bvh.depth}")
 
     def plain(o, d, lim, sc=scene):
         return trace_rays_bruteforce(sc.tri_v0, sc.tri_e1, sc.tri_e2, o, d, lim, T_MIN)
@@ -240,16 +260,15 @@ def phase_kernels(dev, results):
                          pix=pixel_coords(W, H, dev)[pid])
     lim = torch.full((W * H,), T_MAX, device=dev)
     k = tracer.trace(o, d, lim)
-    errs = [compare_trace("primaries 1280x720", k, plain(o, d, lim), lim)]
+    errs = [compare_trace("primaries 1280x720", k, plain(o, d, lim), lim, ties=False)]
     ms = cuda_ms(lambda: tracer.trace(o, d, lim))
     plain_ms = cuda_ms(lambda: plain(o, d, lim), reps=3)
-    walk, counts = trace_rays_bvh(tracer.nodes, scene, o, d, lim, count=True)
-    if not all(torch.equal(a, b) for a, b in zip(walk, k)):
-        raise AssertionError("trace_rays_bvh's hits differ from kernel A's on the primaries")
-    bound_ms, bound_by = trace_bound(tracer.nodes, scene, W * H, counts)
+    walk, counts = trace_rays_bvh_ordered(tracer.bvh, o, d, lim, count=True)
+    check_equal("trace_rays_bvh_ordered vs kernel A on the primaries", walk, k)
+    bound_ms, bound_by = trace_bound(walk_tables(tracer.bvh), W * H, counts)
     log(f"[trace] primaries 1280x720: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}; {counts.nodes.float().mean():.2f} node "
-        f"and {counts.leaves.float().mean():.2f} leaf visits a ray)")
+        f"bound {bound_ms:.4f} ms ({bound_by}; {counts.nodes.float().mean():.2f} slab "
+        f"and {counts.leaves.float().mean():.2f} triangle tests a ray)")
     results["trace"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None}
 
@@ -298,12 +317,13 @@ def phase_kernels(dev, results):
         sh = out.shadow_rays
         sh_o, sh_d, sh_l = sh[0:3].T, sh[3:6].T, sh[6]
         k = tracer.trace(sh_o, sh_d, sh_l)
-        errs.append(compare_trace(f"shadow pool d={dd}", k, plain(sh_o, sh_d, sh_l), sh_l))
+        errs.append(compare_trace(f"shadow pool d={dd}", k, plain(sh_o, sh_d, sh_l), sh_l,
+                                  ties=False))
         if dd == 0:
             nx = out.next_rays
             nx_o, nx_d, nx_l = nx[0:3].T, nx[3:6].T, nx[6]
             errs.append(compare_trace("bounce pool d=1", tracer.trace(nx_o, nx_d, nx_l),
-                                      plain(nx_o, nx_d, nx_l), nx_l))
+                                      plain(nx_o, nx_d, nx_l), nx_l, ties=False))
         carry, seed, rays, sh_tri = out.carry, out.seed, out.next_rays, k.tri
     results["shade"]["max_abs_err"] = max(shade_errs)
 
@@ -311,9 +331,10 @@ def phase_kernels(dev, results):
     soup = make_random_soup(16384, device=dev)
     soup_tracer = make_cuda_tracer(soup)
     o, d, lim = random_rays(65536, 3, dev)
-    k = trace_kernel(soup_tracer.nodes, soup, o, d, lim)
-    errs.append(compare_trace("soup 16384 tris, 65536 rays", k, plain(o, d, lim, soup), lim))
-    ms = cuda_ms(lambda: trace_kernel(soup_tracer.nodes, soup, o, d, lim))
+    k = trace_kernel(soup_tracer.bvh, soup, o, d, lim)
+    errs.append(compare_trace("soup 16384 tris, 65536 rays", k, plain(o, d, lim, soup), lim,
+                              ties=False))
+    ms = cuda_ms(lambda: trace_kernel(soup_tracer.bvh, soup, o, d, lim))
     plain_ms = cuda_ms(lambda: plain(o, d, lim, soup), reps=2)
     log(f"[trace] soup 16384 tris, 65536 rays: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results["trace"]["max_abs_err"] = max(errs)
@@ -455,8 +476,8 @@ def drive_probes(dev) -> dict:
     city = built["city"]
     log(f"[probes] city: {city.scene.num_tris} triangles (padded), host build "
         f"{city.seconds['scene']:.4f} s scene + {city.seconds['bvh']:.4f} s BVH + "
-        f"{city.seconds['tables']:.4f} s tables; {city.tables.nodes.shape[0]} BVH nodes, "
-        f"depth {city.tables.max_depth}")
+        f"{city.seconds['tables']:.4f} s tables; {city.tables.bvh.threaded.shape[0]} BVH nodes, "
+        f"{city.tables.bvh.nodes.shape[0]} child-box records, depth {city.tables.max_depth}")
     counters = (floor_kernel, fma_peak, trace_ablate, trace_variant, trace_kernel)
     for c in counters:
         c.launches = 0
@@ -485,7 +506,9 @@ def check_probes(dev, run, results) -> None:
         FLOOR_THREADS, fma_flops, fma_peak, fma_peak_plain, floor_kernel, floor_plain,
         miss_record,
     )
-    from vkrt_tpu_torch.ops.trace import RayHits, trace_rays_bruteforce, trace_rays_bvh
+    from vkrt_tpu_torch.ops.trace import (
+        BvhCounts, RayHits, trace_rays_bruteforce, trace_rays_bvh_ordered,
+    )
 
     built, mt, ab, va, fp = (run[k] for k in ("built", "mt", "ab", "va", "fp"))
     launches = run["launches"]
@@ -500,16 +523,19 @@ def check_probes(dev, run, results) -> None:
     floor = min(mt["cornell"]["floor"], key=lambda r: r["device_us"])
     buf = torch.empty((4, n), device=dev)
     c_bound = bound(n * 44, 0)
+    # no PyTorch call computes the floor's function (28 B a ray read, t =
+    # |t_lim|, tri = -1, u = v = 0 written): zero_ of the record writes 16 of
+    # its 44 B a ray and is only a write-only yardstick
     results["floor"] = {
         "launches": launches["floor_kernel"], "max_abs_err": 0.0,
         "ms": floor["device_us"] * 1e-3,
         "plain_ms": cuda_ms(lambda: floor_plain(o, d, lim)),
-        "bound_ms": c_bound[0], "bound_by": c_bound[1],
-        "library_ms": cuda_ms(lambda: buf.zero_()),
+        "bound_ms": c_bound[0], "bound_by": c_bound[1], "library_ms": None,
     }
     log(f"[probes] floor: best {floor['threads']} threads {floor['device_us']:.3f} us/launch, "
-        f"plain {results['floor']['plain_ms'] * 1e3:.3f} us, zero_ of the (4, N) record "
-        f"{results['floor']['library_ms'] * 1e3:.3f} us, bound {c_bound[0] * 1e3:.3f} us")
+        f"plain {results['floor']['plain_ms'] * 1e3:.3f} us, bound {c_bound[0] * 1e3:.3f} us; "
+        f"write-only yardstick (not the floor's function): zero_ of the (4, N) record "
+        f"{cuda_ms(lambda: buf.zero_()) * 1e3:.3f} us")
 
     # F: bit-equal to the plain recurrence, at a small K and at the timed
     # full K, on seeded inputs that differ element by element. One fused
@@ -534,10 +560,13 @@ def check_probes(dev, run, results) -> None:
                            "bound_by": f_bound[1], "library_ms": None, "tflops": fp["tflops"]}
 
     # A: against brute force on 65,536 subsampled rays (any: the verdict
-    # of a closest hit nearer than the any bound)
+    # of a closest hit nearer than the any bound); then, per ray set, its
+    # time beside the stackless walk's (E threaded, same rays), the visits
+    # and SIMT efficiency of both walks and both bounds
     errs = []
+    a_sets = {}
     for name, b in built.items():
-        sc = b.scene
+        sc, bvh = b.scene, b.tables.bvh
         for kind in ("primary", "incoherent"):
             r = mt[name][kind]
             idx = subsample(r["o"].shape[0], 65536).to(dev)
@@ -545,15 +574,19 @@ def check_probes(dev, run, results) -> None:
             lim = r["closest"]["t_lim"][idx]
             p = trace_rays_bruteforce(sc.tri_v0, sc.tri_e1, sc.tri_e2, so, sd, lim)
             errs.append(compare_trace(f"{name} {kind} closest (65,536 of {r['o'].shape[0]})",
-                                      pick(r["closest"]["hits"], idx), p, lim))
+                                      pick(r["closest"]["hits"], idx), p, lim, ties=False))
             near = (p.tri >= 0) & (p.t < micro_trace.ANY_BOUND)
             p_any = RayHits(p.t, torch.where(near, p.tri, -1), p.u, p.v)
             errs.append(compare_trace(f"{name} {kind} any", pick(r["any"]["hits"], idx),
                                       p_any, r["any"]["t_lim"][idx]))
+            for mode in ("closest", "any"):
+                a_sets[(name, kind, mode)] = ray_set_report(
+                    f"{name} {mode} {kind}", b, r["o"], r["d"], r[mode], mode == "any")
     results["trace"]["max_abs_err"] = max(results["trace"]["max_abs_err"], *errs)
+    results["trace"]["ray_sets"] = {" ".join(k): v for k, v in a_sets.items()}
 
     # D: full and count bit-equal to kernel A, boxes/top the miss record,
-    # count's columns equal to the plain walk
+    # count's columns equal to the plain front-to-back walk
     for name, b in built.items():
         for kind in ("primary", "incoherent"):
             r, a_hits = ab[name][kind], mt[name][kind]["closest"]["hits"]
@@ -565,48 +598,46 @@ def check_probes(dev, run, results) -> None:
             idx = torch.arange(r["o"].shape[0], device=dev) if full_set else \
                 subsample(r["o"].shape[0], 4096).to(dev)
             t0 = time.perf_counter()
-            walk, cnt = trace_rays_bvh(b.tables.nodes, b.scene, r["o"][idx], r["d"][idx],
-                                       r["full"]["t_lim"][idx], count=True)
+            walk, cnt = trace_rays_bvh_ordered(b.tables.bvh, r["o"][idx], r["d"][idx],
+                                               r["full"]["t_lim"][idx], count=True)
             sync(dev)
             walk_ms = (time.perf_counter() - t0) * 1e3
             k_cnt = r["count"]["counts"]
-            check_equal(f"{name} {kind} count columns vs trace_rays_bvh",
+            check_equal(f"{name} {kind} count columns vs trace_rays_bvh_ordered",
                         (k_cnt.nodes[idx], k_cnt.leaves[idx]), (cnt.nodes, cnt.leaves))
-            check_equal(f"{name} {kind} trace_rays_bvh hits vs kernel A", walk,
+            check_equal(f"{name} {kind} trace_rays_bvh_ordered hits vs kernel A", walk,
                         pick(a_hits, idx))
             st = r["count"]["stats"]
-            log(f"[probes] {name} {kind}: node visits/ray mean {st['nodes']['mean']:.2f} "
+            log(f"[probes] {name} {kind}: slab tests/ray mean {st['nodes']['mean']:.2f} "
                 f"p50 {st['nodes']['p50']:.0f} p95 {st['nodes']['p95']:.0f} max "
-                f"{st['nodes']['max']:.0f}; leaf visits/ray mean {st['leaves']['mean']:.2f}; "
-                f"node visits/1024-ray block mean {st['block_nodes']['mean']:.0f} max "
-                f"{st['block_nodes']['max']:.0f}; "
+                f"{st['nodes']['max']:.0f}; triangle tests/ray mean {st['leaves']['mean']:.2f}; "
+                f"slab tests/1024-ray block mean {st['block_nodes']['mean']:.0f} max "
+                f"{st['block_nodes']['max']:.0f}; SIMT efficiency {st['simt_efficiency']:.4f}; "
                 + ", ".join(f"{m} {r[m]['ms']:.4f} ms" for m in ablate_kernel.MODES))
-            # kernel A on these rays beside its bound, and beside the traffic
-            # of every visit (32 B a node, 36 B a triangle, 44 B of ray I/O)
-            # and its instructions at kernel F's measured rate (2 FLOPs an
-            # FMA instruction)
+            # kernel A on these rays beside the traffic of every visit (64 B a
+            # record, 48 B a triangle, 44 B of ray I/O) and its instructions
+            # at kernel F's measured rate (2 FLOPs an FMA instruction)
             n_k = r["o"].shape[0]
-            a_b = trace_bound(b.tables.nodes, b.scene, n_k, k_cnt)
             visits = (int(k_cnt.nodes.sum()), int(k_cnt.leaves.sum()))
-            traffic = visits[0] * 32 + visits[1] * 36 + n_k * 44
+            traffic = visits[0] * 32 + visits[1] * 48 + n_k * 44
             ops = visits[0] * SLAB_OPS + visits[1] * MT_OPS
             log(f"[probes] {name} {kind} kernel A closest "
-                f"{mt[name][kind]['closest']['ms']:.4f} ms: bound {a_b[0]:.4f} ms "
-                f"({a_b[1]}); per-visit traffic {traffic / 1e9:.4f} GB = "
-                f"{traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s; {ops / 1e9:.4f} "
-                f"G FP32 instructions = {ops / (fp['tflops'] / 2 * 1e12) * 1e3:.4f} ms at "
-                f"kernel F's {fp['tflops'] / 2:.2f} T instructions/s")
+                f"{mt[name][kind]['closest']['ms']:.4f} ms: per-visit traffic "
+                f"{traffic / 1e9:.4f} GB = {traffic / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 "
+                f"TB/s; {ops / 1e9:.4f} G FP32 instructions = "
+                f"{ops / (fp['tflops'] / 2 * 1e12) * 1e3:.4f} ms at kernel F's "
+                f"{fp['tflops'] / 2:.2f} T instructions/s")
             if full_set:
-                n_city = r["o"].shape[0]
-                a_b = trace_bound(b.tables.nodes, b.scene, n_city, r["count"]["counts"])
-                d_b = trace_bound(b.tables.nodes, b.scene, n_city, r["count"]["counts"],
-                                  out_bytes_per_ray=24)
-                results["trace"].update({"city_ms": mt[name][kind]["closest"]["ms"],
-                                         "city_bound_ms": a_b[0], "city_bound_by": a_b[1]})
+                a_set = a_sets[(name, kind, "closest")]
+                d_b = trace_bound(walk_tables(b.tables.bvh), n_k, k_cnt, out_bytes_per_ray=24)
+                results["trace"].update({"city_ms": a_set["ms"],
+                                         "city_bound_ms": a_set["bound_ms"],
+                                         "city_bound_by": a_set["bound_by"]})
                 results["trace_ablate"] = {
                     "launches": launches["trace_ablate"], "max_abs_err": 0.0,
                     "ms": r["count"]["ms"], "plain_ms": walk_ms, "bound_ms": d_b[0],
-                    "bound_by": d_b[1], "library_ms": None}
+                    "bound_by": d_b[1], "library_ms": None,
+                    "modes_ms": {m: r[m]["ms"] for m in ablate_kernel.MODES}}
 
     # E: every variant against kernel A on both ray sets (mt256 against
     # brute force over its 128 triangles)
@@ -626,19 +657,80 @@ def check_probes(dev, run, results) -> None:
                     p = a_hits
                 e_err.append(compare_trace(f"{name} {kind} {v} ({r[v]['ms']:.4f} ms, "
                                            f"{r[v]['mrays']:.2f} Mrays/s)", r[v]["hits"], p, lim))
+    # E's bounds: threaded from the stackless walk's visits, ordered from
+    # kernel D's count (its walk tests the same boxes and the root's, one
+    # more slab test a ray); the tiled rays are the primary rays in another
+    # order, so the sums are theirs
+    e_sets = {}
+    for name, b in built.items():
+        tabs = threaded_tables(b.tables.bvh, b.scene)
+        for kind, a_kind in (("tiled", "primary"), ("incoherent", "incoherent")):
+            r, n_k = va[name][kind], va[name][kind]["o"].shape[0]
+            a_set = a_sets[(name, a_kind, "closest")]
+            cnt = ab[name][a_kind]["count"]["counts"]
+            ordered = BvhCounts(cnt.nodes + 1, cnt.leaves)
+            e_sets[f"{name} {kind}"] = row = {
+                "threaded_ms": r["threaded"]["ms"], "ordered_ms": r["ordered"]["ms"],
+                "flat_ms": r["flat"]["ms"], "mt128_ms": r["mt128"]["ms"]}
+            row["threaded_bound_ms"], row["threaded_bound_by"] = (
+                a_set["threaded_bound_ms"], a_set["threaded_bound_by"])
+            row["ordered_bound_ms"], row["ordered_bound_by"] = trace_bound(tabs, n_k, ordered)
+            log(f"[probes] E {name} {kind}: threaded {row['threaded_ms']:.4f} ms (bound "
+                f"{row['threaded_bound_ms']:.4f} ms, {row['threaded_bound_by']}), ordered "
+                f"{row['ordered_ms']:.4f} ms (bound {row['ordered_bound_ms']:.4f} ms, "
+                f"{row['ordered_bound_by']}), flat {row['flat_ms']:.4f} ms, mt128 "
+                f"{row['mt128_ms']:.4f} ms")
     cb = built["cornell"]
     r = va["cornell"]["tiled"]
     lim = r["threaded"]["t_lim"]
-    _, cnt = trace_rays_bvh(cb.tables.nodes, cb.scene, r["o"], r["d"], lim, count=True)
-    e_b = trace_bound(cb.tables.nodes, cb.scene, r["o"].shape[0], cnt)
     results["trace_variant"] = {
         "launches": launches["trace_variant"], "max_abs_err": max(e_err),
         "ms": r["ordered"]["ms"],
         "plain_ms": cuda_ms(lambda: trace_rays_bruteforce(cb.scene.tri_v0, cb.scene.tri_e1,
                                                           cb.scene.tri_e2, r["o"], r["d"], lim),
                             reps=2),
-        "bound_ms": e_b[0], "bound_by": e_b[1], "library_ms": None,
-        "city_ms": va["city"]["tiled"]["ordered"]["ms"]}
+        "bound_ms": e_sets["cornell tiled"]["ordered_bound_ms"],
+        "bound_by": e_sets["cornell tiled"]["ordered_bound_by"], "library_ms": None,
+        "city_ms": va["city"]["tiled"]["ordered"]["ms"], "ray_sets": e_sets}
+
+
+def ray_set_report(name, b, o, d, a_run, any_hit: bool) -> dict:
+    """Kernel A on one ray set (``a_run``: micro_trace's time, hits and
+    limits) beside kernel E's ``threaded`` on the same rays: both times,
+    the slab and triangle tests a ray and the SIMT efficiency of both walks
+    (kernel D's ``count``; the plain stackless walk), and both bounds."""
+    import torch
+
+    from vkrt_tpu_torch.benchmarks.ablate_kernel import visit_stats
+    from vkrt_tpu_torch.ops.cuda.trace_variants import trace_ablate, trace_variant
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh
+
+    sc, bvh, t_lim = b.scene, b.tables.bvh, a_run["t_lim"]
+    old = trace_variant("threaded", b.tables, sc, o, d, t_lim)
+    if not torch.equal(old.tri >= 0, a_run["hits"].tri >= 0):
+        raise AssertionError(f"{name}: E threaded's verdicts differ from kernel A's")
+    old_ms = cuda_ms(lambda: trace_variant("threaded", b.tables, sc, o, d, t_lim), reps=4)
+    hits, cnt = trace_ablate("count", b.tables, sc, o, d, t_lim, any_hit=any_hit)
+    check_equal(f"{name} count vs kernel A", (hits.tri >= 0,) if any_hit else hits,
+                (a_run["hits"].tri >= 0,) if any_hit else a_run["hits"])
+    _, old_cnt = trace_rays_bvh(bvh.threaded, sc, o, d, t_lim, any_hit=any_hit, count=True)
+    new, was = visit_stats(cnt), visit_stats(old_cnt)
+    n = o.shape[0]
+    a_b = trace_bound(walk_tables(bvh), n, cnt)
+    e_b = trace_bound(threaded_tables(bvh, sc), n, old_cnt)
+    log(f"[walk] {name}: kernel A {a_run['ms']:.4f} ms ({new['nodes']['mean']:.2f} slab + "
+        f"{new['leaves']['mean']:.2f} triangle tests a ray, SIMT efficiency "
+        f"{new['simt_efficiency']:.4f}, bound {a_b[0]:.4f} ms {a_b[1]}); E threaded "
+        f"{old_ms:.4f} ms ({was['nodes']['mean']:.2f} + {was['leaves']['mean']:.2f}, SIMT "
+        f"efficiency {was['simt_efficiency']:.4f}, bound {e_b[0]:.4f} ms {e_b[1]}); "
+        f"{old_ms / a_run['ms']:.2f}x")
+    return {"ms": a_run["ms"], "bound_ms": a_b[0], "bound_by": a_b[1],
+            "slab_tests": new["nodes"]["mean"], "triangle_tests": new["leaves"]["mean"],
+            "simt_efficiency": new["simt_efficiency"], "threaded_ms": old_ms,
+            "threaded_bound_ms": e_b[0], "threaded_bound_by": e_b[1],
+            "threaded_slab_tests": was["nodes"]["mean"],
+            "threaded_triangle_tests": was["leaves"]["mean"],
+            "threaded_simt_efficiency": was["simt_efficiency"]}
 
 
 def main() -> int:
@@ -668,6 +760,10 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             log(f"[build]   {line.strip()}")
+    info = kdev.trace_info()
+    log(f"[build] kernel A as compiled: {info['registers']} registers a thread, "
+        f"{info['shared_bytes']} B shared memory a block, {info['local_bytes']} B local "
+        f"memory (stack frame) a thread, {info['blocks_per_sm']} blocks of 128 threads an SM")
     t0 = time.perf_counter()
     native.library()
     log(f"[build] native SAH builder: {time.perf_counter() - t0:.2f} s")

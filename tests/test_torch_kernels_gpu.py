@@ -3,9 +3,9 @@ chip_smoke.py's phases 2 and 3, at test sizes). Marked ``gpu``; each test
 skips without a CUDA device (decided in the fixture, not at import).
 
 Run on the card: ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
-Tolerances: hit verdicts equal on >= 99.99% of lanes, t within 1e-5
-relative and u, v within 1e-5 absolute where both hit the same triangle;
-shade masks equal on >= 99.9% of lanes, seeds bit-equal there, float
+Tolerances: kernel A's verdicts equal brute force's on every lane, and its
+closest lanes are bit-equal to it, triangle id included (the walk gives an
+equal-t tie to the lower id, as brute force does); shade masks equal on >= 99.9% of lanes, seeds bit-equal there, float
 columns within 1e-4 relative (1e-6 absolute) on >= 99% of lanes."""
 
 import numpy as np
@@ -39,31 +39,57 @@ def _rays(n, seed, device, extent):
     return tuple(torch.tensor(a.astype(np.float32), device=device) for a in (o, d, lim))
 
 
-@pytest.mark.parametrize("kind", ["box", "soup"])
+def _scene(kind, device):
+    from vkrt_tpu_torch.scene import make_city, make_cornell_box, make_random_soup
+
+    if kind == "box":
+        return make_cornell_box(device=device), 4.5
+    if kind == "soup":
+        return make_random_soup(4096, device=device), 1.5
+    return make_city(grid=16, device=device), 20.0
+
+
+@pytest.mark.parametrize("kind", ["box", "soup", "city"])
 def test_trace_kernel_matches_bruteforce(cuda, kind):
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer, trace_kernel
     from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce
-    from vkrt_tpu_torch.scene import make_cornell_box, make_random_soup
 
-    scene = make_cornell_box(device=cuda) if kind == "box" else make_random_soup(4096, device=cuda)
+    scene, extent = _scene(kind, cuda)
     tracer = make_cuda_tracer(scene)
-    o, d, lim = _rays(1 << 15, 1, cuda, 4.5 if kind == "box" else 1.5)
+    o, d, lim = _rays(1 << 15, 1, cuda, extent)
     before = trace_kernel.launches
-    k = tracer.trace(o, d, lim)
+    k = trace_kernel(tracer.bvh, scene, o, d, lim)
     assert trace_kernel.launches == before + 1
     p = trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2, o, d, lim)
-    kt, ktri, ku, kv = (x.cpu().numpy() for x in k)
-    pt, ptri, pu, pv = (x.cpu().numpy() for x in p)
-    l_np = lim.cpu().numpy()
-    assert ((ktri >= 0) == (ptri >= 0)).mean() >= 0.9999
-    closest = (ktri >= 0) & (ptri >= 0) & ~(l_np < 0)
-    np.testing.assert_allclose(kt[closest], pt[closest], rtol=1e-5)
-    same = closest & (ktri == ptri)
-    np.testing.assert_allclose(ku[same], pu[same], atol=1e-5, rtol=0)
-    np.testing.assert_allclose(kv[same], pv[same], atol=1e-5, rtol=0)
-    miss = ktri < 0
-    np.testing.assert_array_equal(kt[miss], np.abs(l_np[miss]))
-    assert (ku[miss] == 0).all() and (kv[miss] == 0).all()
+    assert torch.equal(k.tri >= 0, p.tri >= 0)
+    assert (k.tri >= 0).float().mean() > 0.05
+    closest = ~(lim < 0)
+    for a, b in zip(k, p):  # t, tri, u, v bit-equal on closest lanes
+        assert torch.equal(a[closest], b[closest])
+    miss = k.tri < 0
+    assert torch.equal(k.t[miss], lim.abs()[miss])
+    assert (k.u[miss] == 0).all() and (k.v[miss] == 0).all()
+
+
+def test_trace_kernel_refuses_a_deep_tree(cuda):
+    """A tree deeper than the walk's stack: the wrapper raises, and so does
+    the C entry point behind it."""
+    from vkrt_tpu_torch import device as dev
+    from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer, trace_kernel
+    from vkrt_tpu_torch.ops.trace import WALK_STACK
+    from vkrt_tpu_torch.scene import make_cornell_box
+
+    scene = make_cornell_box(device=cuda)
+    bvh = make_cuda_tracer(scene).bvh
+    o, d, lim = _rays(256, 2, cuda, 4.5)
+    with pytest.raises(ValueError, match="exceeds"):
+        trace_kernel(bvh._replace(depth=WALK_STACK + 1), scene, o, d, lim)
+    out = [torch.empty(256, device=cuda) for _ in range(4)]
+    err = dev.kernels().vkrt_trace(
+        bvh.nodes.data_ptr(), bvh.tris.data_ptr(), WALK_STACK + 1,
+        o.data_ptr(), 3, 1, d.data_ptr(), 3, 1, lim.data_ptr(), 256, 1e-3, 0,
+        *(t.data_ptr() for t in out), dev.stream_ptr(cuda))
+    assert err != 0
 
 
 @pytest.mark.parametrize("corr", [True, False])
@@ -125,9 +151,9 @@ def test_wrappers_refuse_bad_inputs(cuda):
     tracer = make_cuda_tracer(scene)
     o = torch.zeros((8, 3), device=cuda)
     with pytest.raises(ValueError):
-        trace_kernel(tracer.nodes, scene, o.double(), o, torch.ones(8, device=cuda))
+        trace_kernel(tracer.bvh, scene, o.double(), o, torch.ones(8, device=cuda))
     with pytest.raises(ValueError):
-        trace_kernel(tracer.nodes, scene, o, o, torch.ones(8))
+        trace_kernel(tracer.bvh, scene, o, o, torch.ones(8))
 
     n = 256
     mat_tab, light_tab = scene_tables(scene)

@@ -1,7 +1,7 @@
 """Port vs JAX package for the trace-probe slice: the host modules the port
 keeps its own copies of (config, glTF, PNG, the native SAH builder), the
-city scene, the plain threaded-BVH walk and the plain versions of the probe
-kernels C-F, and the probe entry points on the CPU.
+city scene, the plain BVH walks (threaded and front to back) and the plain
+versions of the probe kernels C-F, and the probe entry points on the CPU.
 
 Tolerances: the module copies and ``make_city`` are equal (arrays
 bit-equal). ``trace_rays_bvh`` against the JAX package's
@@ -9,7 +9,10 @@ bit-equal). ``trace_rays_bvh`` against the JAX package's
 exact, triangle ids equal except at equal-t ties (where t agrees), t within
 1e-5 relative and u, v within 1e-5 absolute (XLA's CPU arithmetic
 contracts some products, and t, a dot product with cancellation, moves by
-more than a few ulp); its visit counts equal a numpy walk written here. C: the miss record, exact. D and E: their plain
+more than a few ulp); its visit counts equal a numpy walk written here.
+``trace_rays_bvh_ordered`` (kernel A's walk) by the same rule against the
+same JAX references, and bit-equal to the port's brute force, triangle ids
+included. C: the miss record, exact. D and E: their plain
 versions against the JAX plain references by the same rule. F: against
 ``benchmarks/scratch/vpupeak.py``'s kernel run through ``pl.pallas_call(...,
 interpret=True)``: the plain version bit-equal to a fused numpy recurrence,
@@ -51,7 +54,9 @@ from vkrt_tpu_torch.ops.cuda.trace_variants import (
     node_depths, probe_tables, trace_ablate, trace_variant,
 )
 from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-from vkrt_tpu_torch.ops.trace import SLAB_SCALE, trace_rays_bvh
+from vkrt_tpu_torch.ops.trace import (
+    SLAB_SCALE, trace_rays_bruteforce, trace_rays_bvh, trace_rays_bvh_ordered,
+)
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -247,18 +252,18 @@ def case(request):
     references on them (one compile each)."""
     js, ts = _scene(request.param)
     arrays = build_bvh_arrays(ts)
-    nodes = build_bvh(ts)
+    bvh = build_bvh(ts)
     o, d = _rays(ts)
-    bvh = JBvh(*(jnp.asarray(a) for a in arrays))
+    jbvh = JBvh(*(jnp.asarray(a) for a in arrays))
     tris = (js.tri_v0, js.tri_e1, js.tri_e2)
     jo, jd = jnp.asarray(o.numpy()), jnp.asarray(d.numpy())
     ref = {
-        "bvh": trace_closest_bvh(bvh, *tris, jo, jd, T_MIN, T_MAX),
-        "any": trace_any_bvh(bvh, *tris, jo, jd, T_MIN, ANY_BOUND),
+        "bvh": trace_closest_bvh(jbvh, *tris, jo, jd, T_MIN, T_MAX),
+        "any": trace_any_bvh(jbvh, *tris, jo, jd, T_MIN, ANY_BOUND),
         "brute": trace_closest_bruteforce(*tris, jo, jd, T_MIN, T_MAX),
         "mt64": trace_closest_bruteforce(*(t[:64] for t in tris), jo, jd, T_MIN, T_MAX),
     }
-    return ts, nodes, o, d, {k: jax.tree_util.tree_map(np.asarray, v) for k, v in ref.items()}
+    return ts, bvh, o, d, {k: jax.tree_util.tree_map(np.asarray, v) for k, v in ref.items()}
 
 
 def assert_hits_match(h, ref):
@@ -323,7 +328,8 @@ def _numpy_walk(nodes, ts, o, d, lim):
 
 
 def test_trace_rays_bvh_matches_jax(case):
-    ts, nodes, o, d, ref = case
+    ts, bvh, o, d, ref = case
+    nodes = bvh.threaded
     lim = torch.full((N_RAYS,), T_MAX)
     h, counts = trace_rays_bvh(nodes, ts, o, d, lim, count=True)
     assert_hits_match(h, ref["bvh"])
@@ -341,10 +347,29 @@ def test_trace_rays_bvh_matches_jax(case):
     assert (counts.leaves <= counts.nodes).all() and counts.nodes.min() >= 1
 
 
+def test_trace_rays_bvh_ordered_matches_jax(case):
+    """Kernel A's walk in plain torch against the JAX package's BVH and
+    brute-force tracers on the same rays, and bit-equal to the port's
+    brute force."""
+    ts, bvh, o, d, ref = case
+    lim = torch.full((N_RAYS,), T_MAX)
+    h, counts = trace_rays_bvh_ordered(bvh, o, d, lim, count=True)
+    assert_hits_match(h, ref["bvh"])
+    assert_hits_match(h, ref["brute"])
+    for a, b in zip(h, trace_rays_bruteforce(ts.tri_v0, ts.tri_e1, ts.tri_e2, o, d, lim)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    kill = torch.full((N_RAYS,), -ANY_BOUND)
+    for h_any in (trace_rays_bvh_ordered(bvh, o, d, kill),
+                  trace_rays_bvh_ordered(bvh, o, d, -kill, any_hit=True)):
+        np.testing.assert_array_equal(h_any.tri.numpy() >= 0, ref["any"])
+    _, threaded = trace_rays_bvh(bvh.threaded, ts, o, d, lim, count=True)
+    assert int(counts.nodes.sum()) <= int(threaded.nodes.sum())
+
+
 def test_node_depths_and_cut():
     _, ts = _scene("city")
     tables = probe_tables(build_bvh(ts), ts.num_tris)
-    bits = tables.nodes.numpy().view(np.int32)
+    bits = tables.bvh.threaded.numpy().view(np.int32)
     skip, tri = bits[:, 3], bits[:, 7]
     depth = tables.depth.numpy()
     # recursive reference: the children of inner node i are i + 1 and skip[i + 1]
@@ -380,8 +405,8 @@ def test_floor_plain_is_the_miss_record():
 
 @pytest.mark.parametrize("mode", ["full", "boxes", "top", "count"])
 def test_trace_ablate_plain(case, mode):
-    ts, nodes, o, d, ref = case
-    tables = probe_tables(nodes, ts.num_tris)
+    ts, bvh, o, d, ref = case
+    tables = probe_tables(bvh, ts.num_tris)
     lim = torch.full((N_RAYS,), T_MAX)
     hits, counts = trace_ablate(mode, tables, ts, o, d, lim)
     if mode in ("boxes", "top"):
@@ -392,14 +417,14 @@ def test_trace_ablate_plain(case, mode):
     assert_hits_match(hits, ref["brute" if mode == "full" else "bvh"])
     assert (counts is None) == (mode == "full")
     if counts is not None:
-        _, want = trace_rays_bvh(nodes, ts, o, d, lim, count=True)
+        _, want = trace_rays_bvh_ordered(bvh, o, d, lim, count=True)
         assert torch.equal(counts.nodes, want.nodes) and torch.equal(counts.leaves, want.leaves)
 
 
 @pytest.mark.parametrize("variant", ["threaded", "ordered", "flat", "mt64"])
 def test_trace_variant_plain(case, variant):
-    ts, nodes, o, d, ref = case
-    tables = probe_tables(nodes, ts.num_tris)
+    ts, bvh, o, d, ref = case
+    tables = probe_tables(bvh, ts.num_tris)
     hits = trace_variant(variant, tables, ts, o, d, torch.full((N_RAYS,), T_MAX))
     assert_hits_match(hits, ref["mt64" if variant == "mt64" else "brute"])
 

@@ -5,7 +5,7 @@ skips without a CUDA device (decided in the fixture, not at import).
 Run on the card: ``python -m pytest --noconftest tests/test_torch_probes_gpu.py -q``.
 Tolerances: C, D's ``full``/``boxes``/``top``/``count`` and F at K = 512 are
 bit-equal to what they are held to (the miss record, kernel A, the plain
-walk's visit counts, the f64-per-step recurrence); E's variants agree with
+front-to-back walk's visit counts, the f64-per-step recurrence); E's variants agree with
 kernel A on every verdict, and on the triangle except at equal-t ties, with
 t, u and v within 1e-6 relative where both hit one triangle."""
 
@@ -75,18 +75,18 @@ def test_ablate_modes(cuda, city, any_hit):
     from vkrt_tpu_torch.ops.cuda.probes import miss_record
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
     from vkrt_tpu_torch.ops.cuda.trace_variants import trace_ablate
-    from vkrt_tpu_torch.ops.trace import trace_rays_bvh
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_ordered
 
     scene, tables = city
     o, d, lim = _rays(1 << 14, 3, scene, cuda, strided=True)
-    a = trace_kernel(tables.nodes, scene, o, d, lim, any_hit=any_hit)
+    a = trace_kernel(tables.bvh, scene, o, d, lim, any_hit=any_hit)
     before = trace_ablate.launches
     full, none = trace_ablate("full", tables, scene, o, d, lim, any_hit=any_hit)
     assert none is None and trace_ablate.launches == before + 1
     assert all(torch.equal(x, y) for x, y in zip(full, a))
     hits, counts = trace_ablate("count", tables, scene, o, d, lim, any_hit=any_hit)
     assert all(torch.equal(x, y) for x, y in zip(hits, a))
-    walk, plain = trace_rays_bvh(tables.nodes, scene, o, d, lim, any_hit=any_hit, count=True)
+    walk, plain = trace_rays_bvh_ordered(tables.bvh, o, d, lim, any_hit=any_hit, count=True)
     assert torch.equal(counts.nodes, plain.nodes) and torch.equal(counts.leaves, plain.leaves)
     assert all(torch.equal(x, y) for x, y in zip(walk, a))
     for mode in ("boxes", "top"):
@@ -106,7 +106,7 @@ def test_variants_match_kernel_a(cuda, city, variant):
         ref = trace_rays_bruteforce(scene.tri_v0[:64], scene.tri_e1[:64], scene.tri_e2[:64],
                                     o, d, lim)
     else:
-        ref = trace_kernel(tables.nodes, scene, o, d, lim)
+        ref = trace_kernel(tables.bvh, scene, o, d, lim)
     before = trace_variant.launches
     k = trace_variant(variant, tables, scene, o, d, lim)
     assert trace_variant.launches == before + 1
@@ -140,3 +140,6 @@ def test_probe_wrappers_refuse_bad_inputs(cuda, city):
         trace_variant("ordered", dataclasses.replace(tables, max_depth=65), scene, o, d, lim)
     with pytest.raises(ValueError):
         trace_variant("threaded", tables, scene, o, d, lim.cpu())
+    deep = dataclasses.replace(tables, bvh=tables.bvh._replace(depth=33))
+    with pytest.raises(ValueError, match="exceeds"):  # deeper than kernel D's stack
+        trace_ablate("count", deep, scene, o, d, lim)

@@ -1,6 +1,9 @@
 """Port vs JAX package: the brute-force tracer (the plain version of the
-CUDA trace kernel) against the Pallas tracer in interpret mode, and the
-threaded BVH the CUDA kernel walks, traversed by a small torch reference.
+CUDA trace kernel) against the Pallas tracer in interpret mode; the
+threaded BVH of the native builder, traversed by a small torch reference;
+and the tables the CUDA kernel walks (child-box records, triangle records)
+with the kernel's front-to-back walk in plain torch, against brute force
+(bit-equal on closest lanes, triangle id included) and the Pallas tracer.
 
 Tolerances: hit verdicts equal except at ties or grazing edges (>= 99.9%
 of lanes), t to 1e-5 relative, u and v to 1e-5 absolute, resolved
@@ -101,6 +104,23 @@ def check_against_pallas(kind: str):
     tany = tracer.any(to, td, T_MIN, torch.from_numpy(np.abs(lim))).numpy()
     assert (jany == tany).mean() >= 0.999
     assert not tany[never].any() and tany.mean() > 0.1
+
+    # kernel A's front-to-back walk in plain torch against the same launch
+    from vkrt_tpu_torch.ops.cuda.trace import build_bvh
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_ordered
+
+    bvh = build_bvh(ts)
+    w = trace_rays_bvh_ordered(bvh, to, td, tl)
+    whit = w.tri.numpy() >= 0
+    assert (whit == jhit).mean() >= 0.999
+    both = jhit & whit & (lane != 1)
+    same = both & (np.asarray(jh.tri) == w.tri.numpy())
+    assert same.sum() >= 0.99 * both.sum()
+    np.testing.assert_allclose(w.t.numpy()[both], np.asarray(jh.t)[both], rtol=1e-5)
+    np.testing.assert_allclose(w.u.numpy()[same], np.asarray(jh.u)[same], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(w.v.numpy()[same], np.asarray(jh.v)[same], atol=1e-5, rtol=0)
+    wany = trace_rays_bvh_ordered(bvh, to, td, torch.from_numpy(lim_any)).tri.numpy() >= 0
+    assert (wany == jany).mean() >= 0.999 and not wany[never].any()
 
 
 def test_box_matches_pallas():
@@ -276,3 +296,216 @@ def test_intersect_primitives_match_jax():
                      T_MIN, T_MAX).numpy()
     np.testing.assert_array_equal(tb, jb)
     assert 0.05 < tb.mean() < 0.95
+
+
+# --- kernel A's tables and its front-to-back walk in plain torch -----------------
+
+
+def _np_scene(kind: str):
+    import vkrt_tpu_torch.scene as tscene
+
+    if kind == "city":
+        return tscene.make_city(grid=4, device="cpu")
+    return _scenes(kind)[1]
+
+
+def _scene_rays(ts, seed: int, n: int = 2048):
+    """Rays from inside the scene's bounds with closest, first-hit-kills,
+    zero-limit (+0 and -0) and dead lanes."""
+    rng = np.random.default_rng(seed)
+    v0 = ts.tri_v0.numpy()
+    o = rng.uniform(v0.min(0), v0.max(0), (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    lim = np.full(n, T_MAX)
+    lane = rng.integers(0, 6, n)
+    lim[lane == 1] = -rng.uniform(0.05, 6.0, (lane == 1).sum())
+    lim[lane == 2] = rng.uniform(0.05, 3.0, (lane == 2).sum())
+    lim[lane == 3] = 0.0
+    lim[lane == 4] = -0.0
+    o[lane == 5], d[lane == 5], lim[lane == 5] = 1e30, 0.0, -1.0
+    return tuple(torch.from_numpy(a.astype(np.float32)) for a in (o, d, lim)) + (lane,)
+
+
+@pytest.mark.parametrize("kind", ["box", "soup", "city"])
+def test_pack_bvh2_round_trips(kind):
+    """The child-box records hold the threaded tree: the children of inner
+    node i are i + 1 and skip[i + 1], with their boxes, and every leaf's
+    triangle is reached through its reference."""
+    from vkrt_tpu_torch.ops.cuda.trace import node_depths, pack_bvh2_nodes, pack_tris
+
+    ts = _np_scene(kind)
+    lo, hi, skip, tri = build_bvh_arrays(ts)
+    rec, leaf_tri, depth = pack_bvh2_nodes(lo, hi, skip, tri)
+    bits = rec.view(np.int32)
+    inner = np.nonzero(tri < 0)[0]
+    assert rec.shape == (len(inner), 16) and len(leaf_tri) == (tri >= 0).sum()
+    assert len(inner) == len(leaf_tri) - 1  # a full binary tree
+    np.testing.assert_array_equal(leaf_tri, tri[tri >= 0])
+    node_of_ref = {}  # reference -> threaded node
+    for row, i in enumerate(inner):
+        node_of_ref[row] = i
+    leaf_nodes = np.nonzero(tri >= 0)[0]
+    for slot, i in enumerate(leaf_nodes):
+        node_of_ref[~slot] = i
+    depths = node_depths(skip.astype(np.int64), tri)
+    for row, i in enumerate(inner):
+        left, right = i + 1, skip[i + 1]
+        assert node_of_ref[bits[row, 3]] == left and node_of_ref[bits[row, 7]] == right
+        np.testing.assert_array_equal(rec[row, 0:3], lo[left])
+        np.testing.assert_array_equal(rec[row, 4:7], hi[left])
+        np.testing.assert_array_equal(rec[row, 8:11], lo[right])
+        np.testing.assert_array_equal(rec[row, 12:15], hi[right])
+        assert bits[row, 11] == depths[i] and bits[row, 15] == 0
+    assert depth == depths.max() == depths[leaf_nodes].max()
+    v0, e1, e2 = (t.numpy() for t in (ts.tri_v0, ts.tri_e1, ts.tri_e2))
+    trec = pack_tris(v0, e1, e2, leaf_tri)
+    assert trec.shape == (len(leaf_tri), 12)
+    np.testing.assert_array_equal(trec.view(np.int32)[:, 3], leaf_tri)
+    np.testing.assert_array_equal(trec[:, 0:3], v0[leaf_tri])
+    np.testing.assert_array_equal(trec[:, 4:7], e1[leaf_tri])
+    np.testing.assert_array_equal(trec[:, 8:11], e2[leaf_tri])
+    assert (trec[:, [7, 11]] == 0).all()
+
+
+def _hand_bvh(v0, e1, e2, arrays):
+    """``Bvh`` tables on the CPU from hand-made triangles and tree arrays."""
+    from vkrt_tpu_torch.ops.cuda.trace import pack_bvh2_nodes, pack_bvh_nodes, pack_tris
+    from vkrt_tpu_torch.ops.trace import Bvh
+
+    rec, leaf_tri, depth = pack_bvh2_nodes(*arrays)
+    return Bvh(torch.from_numpy(rec), torch.from_numpy(pack_tris(v0, e1, e2, leaf_tri)),
+               depth, torch.from_numpy(pack_bvh_nodes(*arrays)))
+
+
+def _caterpillar(n: int):
+    """n unit triangles stacked along z and the deepest tree over them: every
+    inner node's left child is a leaf, its right child the rest."""
+    k = np.arange(n, dtype=np.float32)
+    v0 = np.stack([np.zeros(n), np.zeros(n), k], 1).astype(np.float32)
+    e1 = np.tile(np.float32([1, 0, 0]), (n, 1))
+    e2 = np.tile(np.float32([0, 1, 0]), (n, 1))
+    m = 2 * n - 1
+    lo, hi = np.zeros((m, 3), np.float32), np.zeros((m, 3), np.float32)
+    skip, tri = np.full(m, m, np.int32), np.full(m, -1, np.int32)
+    for j in range(n):
+        leaf = 2 * j + 1 if j < n - 1 else m - 1
+        tri[leaf], skip[leaf] = j, leaf + 1
+        lo[leaf], hi[leaf] = (0, 0, j), (1, 1, j)
+        if j < n - 1:
+            lo[2 * j], hi[2 * j] = (0, 0, j), (1, 1, n - 1)
+    return v0, e1, e2, (lo, hi, skip, tri)
+
+
+def test_one_triangle_tree_and_deepest_tree():
+    """A root that is a leaf becomes one record of that leaf twice; a tree of
+    exactly WALK_STACK levels is walked, one level more is refused."""
+    from vkrt_tpu_torch.ops.cuda.trace import check_bvh, trace_kernel
+    from vkrt_tpu_torch.ops.trace import WALK_STACK, trace_rays_bvh_ordered
+
+    rng = np.random.default_rng(3)
+    o = torch.from_numpy(np.c_[rng.uniform(-0.2, 1.0, (256, 2)), np.full(256, -1.0)]
+                         .astype(np.float32))
+    d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(256, 1)
+    lim = torch.full((256,), T_MAX)
+    lim[::4] = -T_MAX
+
+    v0, e1, e2, arrays = _caterpillar(1)
+    one = _hand_bvh(v0, e1, e2, arrays)
+    assert one.nodes.shape == (1, 16) and one.tris.shape == (1, 12) and one.depth == 1
+    assert one.nodes.view(torch.int32)[0, [3, 7]].tolist() == [~0, ~0]
+
+    deep_ok = _hand_bvh(*_caterpillar(WALK_STACK + 1)[:3], _caterpillar(WALK_STACK + 1)[3])
+    assert deep_ok.depth == WALK_STACK
+    for bvh, n in ((one, 1), (deep_ok, WALK_STACK + 1)):
+        tv0, te1, te2 = (torch.from_numpy(a) for a in _caterpillar(n)[:3])
+        h, c = trace_rays_bvh_ordered(bvh, o, d, lim, count=True)
+        ref = trace_rays_bruteforce(tv0, te1, te2, o, d, lim, T_MIN)
+        for a, b in zip(h, ref):  # the nearest of the stack is triangle 0
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        assert 0.2 < (h.tri >= 0).float().mean() < 0.8
+        assert int(c.nodes.max()) <= 2 * n and int(c.nodes.min()) == 2
+
+    too_deep = _hand_bvh(*_caterpillar(WALK_STACK + 2)[:3], _caterpillar(WALK_STACK + 2)[3])
+    assert too_deep.depth == WALK_STACK + 1
+    with pytest.raises(ValueError, match="exceeds"):
+        check_bvh(too_deep)
+    with pytest.raises(ValueError, match="exceeds"):
+        trace_rays_bvh_ordered(too_deep, o, d, lim)
+    _, ts = _scenes("box")
+    with pytest.raises(ValueError, match="exceeds"):  # the wrapper, on the CPU too
+        trace_kernel(too_deep, ts, o, d, lim)
+
+
+@pytest.mark.parametrize("kind", ["box", "soup", "city"])
+def test_ordered_walk_equals_bruteforce(kind):
+    """Kernel A's walk in plain torch against brute force: every closest
+    lane bit-equal, the triangle id included (equal-t ties go to the lower
+    id in both); every first-hit-kills lane by its verdict; zero-limit
+    (+0 and -0) and dead lanes never hit."""
+    from vkrt_tpu_torch.ops.cuda.trace import build_bvh
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_ordered
+
+    ts = _np_scene(kind)
+    bvh = build_bvh(ts)
+    o, d, lim, lane = _scene_rays(ts, seed=21)
+    h = trace_rays_bvh_ordered(bvh, o, d, lim)
+    ref = trace_rays_bruteforce(ts.tri_v0, ts.tri_e1, ts.tri_e2, o, d, lim, T_MIN)
+    hit = h.tri.numpy() >= 0
+    np.testing.assert_array_equal(hit, ref.tri.numpy() >= 0)
+    closest = (lane != 1) & (lane != 5)
+    for a, b in zip(h, ref):
+        np.testing.assert_array_equal(a.numpy()[closest], b.numpy()[closest])
+    assert hit[closest].mean() > 0.1 and hit[lane == 1].mean() > 0.05
+    assert not hit[(lane == 3) | (lane == 4) | (lane == 5)].any()
+    np.testing.assert_array_equal(h.t.numpy()[~hit], np.abs(lim.numpy())[~hit])
+    # any_hit makes every lane a first-hit-kills lane: the same verdicts
+    h_any = trace_rays_bvh_ordered(bvh, o, d, lim, any_hit=True)
+    np.testing.assert_array_equal(h_any.tri.numpy() >= 0, hit)
+
+
+@pytest.mark.parametrize("kind", ["box", "soup", "city"])
+def test_ordered_walk_visits_fewer_than_threaded(kind):
+    """Front to back, the closest hit shrinks the search early: over the
+    closest rays the walk makes no more slab tests (two a record) and no
+    more triangle tests than the stackless walk in fixed preorder."""
+    from vkrt_tpu_torch.ops.cuda.trace import build_bvh
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh, trace_rays_bvh_ordered
+
+    ts = _np_scene(kind)
+    bvh = build_bvh(ts)
+    o, d, lim, lane = _scene_rays(ts, seed=22)
+    keep = torch.from_numpy((lane == 0) | (lane == 2))
+    o, d, lim = o[keep], d[keep], lim[keep]
+    h, c = trace_rays_bvh_ordered(bvh, o, d, lim, count=True)
+    ht, ct = trace_rays_bvh(bvh.threaded, ts, o, d, lim, count=True)
+    np.testing.assert_array_equal(h.t.numpy(), ht.t.numpy())
+    assert int(c.nodes.sum()) <= int(ct.nodes.sum())
+    assert int(c.leaves.sum()) <= int(ct.leaves.sum())
+    assert (c.nodes % 2 == 0).all() and int(c.nodes.min()) >= 2
+
+
+def test_coplanar_duplicates_give_the_lower_id():
+    """Two identical triangles: whichever the walk meets first, the hit is
+    the lower scene triangle id, as brute force's argmin gives it."""
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_ordered
+
+    v0 = np.float32([[0, 0, 1], [0, 0, 1], [0, 0, 3]])
+    e1 = np.tile(np.float32([1, 0, 0]), (3, 1))
+    e2 = np.tile(np.float32([0, 1, 0]), (3, 1))
+    box = (np.float32([0, 0, 1]), np.float32([1, 1, 1]))
+    far = (np.float32([0, 0, 3]), np.float32([1, 1, 3]))
+    o = torch.tensor([[0.25, 0.25, 0.0], [0.25, 0.25, 4.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, -1.0]])
+    lim = torch.full((2,), T_MAX)
+    for first, second in ((0, 1), (1, 0)):  # the duplicate met first has either id
+        lo = np.stack([box[0], box[0], box[0], box[0], far[0]])
+        hi = np.stack([far[1], box[1], box[1], box[1], far[1]])
+        skip = np.int32([5, 4, 3, 4, 5])
+        tri = np.int32([-1, -1, first, second, 2])
+        hi[1] = box[1]
+        bvh = _hand_bvh(v0, e1, e2, (lo, hi, skip, tri))
+        h = trace_rays_bvh_ordered(bvh, o, d, lim)
+        ref = trace_rays_bruteforce(*(torch.from_numpy(a) for a in (v0, e1, e2)), o, d, lim, T_MIN)
+        assert h.tri.tolist() == ref.tri.tolist() == [0, 2]
+        np.testing.assert_array_equal(h.t.numpy(), ref.t.numpy())

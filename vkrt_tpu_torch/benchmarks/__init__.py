@@ -35,7 +35,7 @@ SPIN_MAX_S = 2.0
 class BuiltScene:
     name: str
     scene: SceneTensors
-    tables: ProbeTables  # kernel A's node table and the probes' host tables
+    tables: ProbeTables  # kernel A's BVH tables and the probes' host tables
     tracer: Tracer       # kernel A on the card, brute force on the CPU
     seconds: dict        # host build times: scene, bvh, tables
 
@@ -49,11 +49,11 @@ def build(name: str, device="cuda") -> BuiltScene:
     t0 = time.perf_counter()
     scene = load_cornell(device) if name == "cornell" else make_city(CITY_GRID, device=device)
     t1 = time.perf_counter()
-    nodes = build_bvh(scene)
+    bvh = build_bvh(scene)
     t2 = time.perf_counter()
-    tables = probe_tables(nodes, scene.num_tris)
+    tables = probe_tables(bvh, scene.num_tris)
     t3 = time.perf_counter()
-    tracer = CudaTracer(scene=scene, nodes=nodes) if device.type == "cuda" else Tracer(scene)
+    tracer = CudaTracer(scene=scene, bvh=bvh) if device.type == "cuda" else Tracer(scene)
     return BuiltScene(name, scene, tables, tracer,
                       {"scene": t1 - t0, "bvh": t2 - t1, "tables": t3 - t2})
 
@@ -61,7 +61,8 @@ def build(name: str, device="cuda") -> BuiltScene:
 def describe(b: BuiltScene) -> str:
     s = b.seconds
     return (f"scene {b.name}: {b.scene.num_tris} tris (padded), "
-            f"{b.tables.nodes.shape[0]} BVH nodes, depth {b.tables.max_depth}, "
+            f"{b.tables.bvh.threaded.shape[0]} BVH nodes ({b.tables.bvh.nodes.shape[0]} "
+            f"child-box records), depth {b.tables.max_depth}, "
             f"cut depth {b.tables.cut_depth} ({b.tables.cut.shape[0]} cut nodes); "
             f"host build {s['scene']:.3f} s scene + {s['bvh']:.3f} s BVH + "
             f"{s['tables']:.3f} s tables on {b.scene.device}")

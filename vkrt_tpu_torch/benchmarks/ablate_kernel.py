@@ -1,11 +1,14 @@
 """Ablation of kernel A's walk (port of ``benchmarks/scratch/ablate_kernel.py``):
 how the device time splits into box tests and triangle work.
 
-Kernel D's modes on primary and incoherent rays: ``top`` (slab tests above
-the cut only; the TPU's "svote"), ``boxes`` (every slab test, no triangle
-work; "votes"), ``count`` (the full walk plus per-ray visit counters) and
-``full`` (kernel A). ``count`` prints node and leaf visits per ray and node
-visits per 1024-ray block (mean / p50 / p95 / max).
+Kernel D's modes of kernel A's front-to-back walk on primary and incoherent
+rays: ``top`` (slab tests above the cut only; the TPU's "svote"), ``boxes``
+(slab tests only, no triangle work, so the closest hit never shrinks the
+search; "votes"), ``count`` (the full walk plus per-ray counters) and
+``full`` (kernel A). ``count`` prints slab tests ("node visits": two a
+child-box record) and triangle tests ("leaf visits") per ray, slab tests
+per 1024-ray block (mean / p50 / p95 / max) and the walk's SIMT efficiency
+per 32-ray warp.
 
 Usage: python -m vkrt_tpu_torch.benchmarks.ablate_kernel [cornell|city]
            [--width 1280 --height 720] [--iters N] [--device cuda|cpu]
@@ -26,6 +29,7 @@ from vkrt_tpu_torch.ops.intersect import T_MAX
 
 MODES = ("top", "boxes", "count", "full")  # ablate_kernel.py's svote, votes, count, full
 BLOCK = 1024
+WARP = 32
 
 
 def _stats(x: np.ndarray) -> dict:
@@ -33,11 +37,21 @@ def _stats(x: np.ndarray) -> dict:
             "p95": float(np.percentile(x, 95)), "max": float(x.max())}
 
 
+def simt_efficiency(visits: np.ndarray) -> float:
+    """The share of a warp's lanes that do work while it walks: per-ray
+    visits summed, over 32 x the sum over 32-ray warps (in launch order) of
+    the warp's longest ray. A walk runs until its slowest ray is done."""
+    warps = visits[: len(visits) // WARP * WARP].reshape(-1, WARP)
+    return float(warps.sum() / max(WARP * warps.max(1).sum(), 1))
+
+
 def visit_stats(counts) -> dict:
-    """Per-ray node and leaf visits and per-1024-ray-block node visits."""
+    """Per-ray node and leaf visits, per-1024-ray-block node visits and the
+    SIMT efficiency of the walk (node + leaf visits per 32-ray warp)."""
     nodes = counts.nodes.cpu().numpy().astype(np.int64)
     leaves = counts.leaves.cpu().numpy().astype(np.int64)
     return {"nodes": _stats(nodes), "leaves": _stats(leaves),
+            "simt_efficiency": simt_efficiency(nodes + leaves),
             "block_nodes": _stats(nodes[: len(nodes) // BLOCK * BLOCK].reshape(-1, BLOCK).sum(1)),
             "total_nodes": int(nodes.sum()), "total_leaves": int(leaves.sum())}
 
@@ -77,6 +91,7 @@ def run(scene: str = "cornell", width: int = 1280, height: int = 720, iters: int
         print(f"  {kind} node visits/ray:     {_fmt(st['nodes'])}")
         print(f"  {kind} leaf visits/ray:     {_fmt(st['leaves'])}")
         print(f"  {kind} node visits/block:   {_fmt(st['block_nodes'])}")
+        print(f"  {kind} SIMT efficiency:     {st['simt_efficiency']:.4f}")
         for mode in MODES:
             print(f"  {kind} {mode:6s}: {r[mode]['ms']:9.4f} ms")
         res[kind] = {"o": o, "d": d, **r}

@@ -1,8 +1,10 @@
 """Traversal-structure variants of kernel A (port of
 ``benchmarks/scratch/variants.py``), on the same tree and the same rays.
 
-Kernel E's variants: ``threaded`` (kernel A's skip-link walk; the TPU's
-"plain"), ``ordered`` (a stack, nearer child first), ``flat`` (a scan over
+Kernel E's variants, the alternatives to kernel A's design: ``threaded``
+(the stackless skip-link walk, kernel A's first design; the TPU's "plain"),
+``ordered`` (nearer child first over the same table, the stack in local
+memory and two dependent rounds of loads a level), ``flat`` (a scan over
 the cut's boxes, then a walk inside each hit subtree) and ``mt<K>`` (the
 first K triangles, no boxes: the triangle pipeline's rate). The TPU
 script's ``flatcount``, ``scan_only`` and ``votes_only`` are kernel D's

@@ -1,153 +1,87 @@
-// Kernel A: closest / first-hit-kills ray-triangle trace over a threaded BVH.
+// Kernel A: closest / first-hit-kills ray-triangle trace over a BVH.
 //
 // Replaces vkrt_tpu/ops/pallas/trace.py::_trace_kernel (launched by
 // _packed_trace). The TPU kernel votes 1024-ray blocks over a 16-ary
 // cluster tree with bit-packed box votes and pre-pivoted triangle tables,
 // because Mosaic has no per-lane gathers. A GPU thread gathers freely, so
-// here each thread walks its own ray down the stackless threaded preorder
-// BVH that native/bvh_builder.cpp builds (one triangle per leaf): on a box
-// hit at an inner node go to node + 1, otherwise follow the node's skip
-// link -- the traversal of vkrt_tpu/ops/trace.py::_traverse_one.
+// here each thread walks its own ray down the binary SAH tree that
+// native/bvh_builder.cpp builds (one triangle per leaf).
 //
-// What bounds it on this card: divergent, latency-bound node and triangle
-// loads (32 bytes per node, 36 per triangle) and the branchy walk; the
-// arithmetic is a few dozen FP32 operations per visit, far below the
-// card's FP32 rate. The design keeps the scene small and read-only so the
-// node and triangle tables stay resident in L1/L2 (__ldg loads), packs a
-// node into two float4 loads, and keeps one ray per thread with no stack
-// so occupancy stays high. Wide nodes, ray reordering and persistent
-// blocks are later work.
+// What binds it on this card: not the card's rates but the latency of a
+// chain of dependent, divergent loads (the next node is known only when
+// this one's boxes are tested) and the lanes of a warp that idle while its
+// slowest ray walks on; the arithmetic is 26 FP32 instructions a box and
+// 52 a triangle, far below the FP32 rate, and the tables stay in L2. The
+// design therefore makes the chain short and each link wide (walk.cuh):
+//   - front to back: the nearer child first, the farther on a short stack
+//     with its entry distance, so the closest hit shrinks the search early
+//     and most of the tree is culled when it is popped;
+//   - an inner node holds both children's boxes and references in one
+//     64-byte record: one round of four independent 16-byte loads a level,
+//     where a table of single boxes needs two dependent rounds;
+//   - a triangle is one 48-byte record, three 16-byte loads of adjacent
+//     bytes, in leaf order;
+//   - the stack is 32 entries of 8 bytes a thread in local memory, served
+//     by L1: in shared memory it halves the blocks an SM holds, and
+//     measured slower on every ray set (walk.cuh);
+//   - equal-t ties go to the lower triangle id, so the result does not
+//     depend on the order of the walk.
 //
 // Contract (the Pallas kernel's): per-lane limit t_lim; t_lim < 0 (or
 // any_hit) is a first-hit-kills lane that stops at its first hit with t in
 // (t_min, |t_lim|); on a miss t = |t_lim|, tri = -1, u = v = 0. The MT test
 // is vkrt_tpu/ops/intersect.py::mt_block (det eps 1e-9, u >= 0, v >= 0,
 // u + v <= 1, t_min < t < t_best) and the slab test nudges zero direction
-// components to +-1e-20 as safe_inv_dir does. The slab's far bound is
-// widened by 1 + 2*gamma(3) (Ize 2013) so rounding never culls a box whose
-// triangle the MT test would accept.
+// components to +-1e-20 as safe_inv_dir does.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "walk.cuh"
 
 namespace {
 
-constexpr float kDetEps = 1e-9f;
-constexpr float kSlabScale = 1.0f + 2.0f * 1.7881396e-7f;  // 1 + 2*gamma(3)
-constexpr int kThreads = 128;
-
-// The Moller-Trumbore arithmetic rounds every product and sum on its own
-// (no fused multiply-add), in the operation order of mt_block, so the
-// kernel accepts exactly the triangles the plain version accepts. With
-// contracted FMAs a ray on the shared diagonal of a quad could miss both
-// of its triangles while the plain version hits one of them.
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return __fadd_rn(__fadd_rn(mul(ax, bx), mul(ay, by)), mul(az, bz));
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  float n = fabsf(d) < 1e-20f ? (d < 0.f ? -1e-20f : 1e-20f) : d;
-  return 1.0f / n;
-}
-
-// nodes: (M, 2) float4 = [min.xyz | skip (int bits)], [max.xyz | tri (int bits)]
 __global__ void __launch_bounds__(kThreads)
-trace_kernel(const float4* __restrict__ nodes, int n_nodes,
-             const float* __restrict__ v0, const float* __restrict__ e1,
-             const float* __restrict__ e2,
-             const float* __restrict__ o, int64_t o_sl, int64_t o_sc,
-             const float* __restrict__ d, int64_t d_sl, int64_t d_sc,
-             const float* __restrict__ t_lim, int n, float t_min,
-             int any_hit, float* __restrict__ t_out,
-             int* __restrict__ tri_out, float* __restrict__ u_out,
-             float* __restrict__ v_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int64_t io = (int64_t)i * o_sl, id = (int64_t)i * d_sl;
-  const float ox = o[io], oy = o[io + o_sc], oz = o[io + 2 * o_sc];
-  const float dx = d[id], dy = d[id + d_sc], dz = d[id + 2 * d_sc];
-  const float lim = t_lim[i];
-  const bool kill = any_hit != 0 || lim < 0.f;
-  const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-
-  float best = fabsf(lim);
-  int best_tri = -1;
-  float bu = 0.f, bv = 0.f;
-  int node = 0;
-  while (node < n_nodes) {
-    const float4 lo = __ldg(&nodes[2 * node]);
-    const float4 hi = __ldg(&nodes[2 * node + 1]);
-    const int skip = __float_as_int(lo.w);
-    const int tri = __float_as_int(hi.w);
-    const float t0x = (lo.x - ox) * ix, t1x = (hi.x - ox) * ix;
-    const float t0y = (lo.y - oy) * iy, t1y = (hi.y - oy) * iy;
-    const float t0z = (lo.z - oz) * iz, t1z = (hi.z - oz) * iz;
-    const float tnear = fmaxf(
-        fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z)), t_min);
-    const float tfar = fminf(
-        fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)), best);
-    if (!(tnear <= tfar * kSlabScale)) {
-      node = skip;
-      continue;
-    }
-    if (tri < 0) {  // inner node: descend
-      node = node + 1;
-      continue;
-    }
-    // leaf: Moller-Trumbore against its triangle
-    const float* a = v0 + 3 * (int64_t)tri;
-    const float* b = e1 + 3 * (int64_t)tri;
-    const float* c = e2 + 3 * (int64_t)tri;
-    const float v0x = __ldg(a), v0y = __ldg(a + 1), v0z = __ldg(a + 2);
-    const float e1x = __ldg(b), e1y = __ldg(b + 1), e1z = __ldg(b + 2);
-    const float e2x = __ldg(c), e2y = __ldg(c + 1), e2z = __ldg(c + 2);
-    const float px = sub(mul(dy, e2z), mul(dz, e2y));
-    const float py = sub(mul(dz, e2x), mul(dx, e2z));
-    const float pz = sub(mul(dx, e2y), mul(dy, e2x));
-    const float det = dot3(e1x, e1y, e1z, px, py, pz);
-    if (fabsf(det) > kDetEps) {
-      const float inv_det = 1.0f / det;
-      const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-      const float u = mul(dot3(tx, ty, tz, px, py, pz), inv_det);
-      const float qx = sub(mul(ty, e1z), mul(tz, e1y));
-      const float qy = sub(mul(tz, e1x), mul(tx, e1z));
-      const float qz = sub(mul(tx, e1y), mul(ty, e1x));
-      const float v = mul(dot3(dx, dy, dz, qx, qy, qz), inv_det);
-      const float t = mul(dot3(e2x, e2y, e2z, qx, qy, qz), inv_det);
-      if (u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f && t > t_min && t < best) {
-        best = t;
-        best_tri = tri;
-        bu = u;
-        bv = v;
-        if (kill) break;
-      }
-    }
-    node = skip;
-  }
-  t_out[i] = best;
-  tri_out[i] = best_tri;
-  u_out[i] = bu;
-  v_out[i] = bv;
+trace_kernel(const float4* __restrict__ nodes, const float4* __restrict__ tris,
+             Rays rays, float t_min, int any_hit, Hits out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= rays.n) return;
+  const Ray r = load_ray(rays, i);
+  const float lim = rays.t_lim[i];
+  Best b = {fabsf(lim), -1, 0.f, 0.f};
+  unsigned visits = 0, leaves = 0;  // unused: kFull counts nothing
+  walk<kFull>(nodes, tris, 0, r, t_min, any_hit != 0 || lim < 0.f, b, visits,
+              leaves);
+  store_hit(out, i, b);
 }
 
 }  // namespace
 
-extern "C" int vkrt_trace(const void* nodes, int n_nodes, const void* v0,
-                          const void* e1, const void* e2, const void* o,
-                          int64_t o_sl, int64_t o_sc, const void* d,
-                          int64_t d_sl, int64_t d_sc, const void* t_lim, int n,
-                          float t_min, int any_hit, void* t_out, void* tri_out,
-                          void* u_out, void* v_out, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + kThreads - 1) / kThreads;
-    trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float4*)nodes, n_nodes, (const float*)v0, (const float*)e1,
-        (const float*)e2, (const float*)o, o_sl, o_sc, (const float*)d, d_sl,
-        d_sc, (const float*)t_lim, n, t_min, any_hit, (float*)t_out,
-        (int*)tri_out, (float*)u_out, (float*)v_out);
-  }
+extern "C" int vkrt_trace(const void* nodes, const void* tris, int max_depth,
+                          const void* o, int64_t o_sl, int64_t o_sc,
+                          const void* d, int64_t d_sl, int64_t d_sc,
+                          const void* t_lim, int n, float t_min, int any_hit,
+                          void* t_out, void* tri_out, void* u_out, void* v_out,
+                          void* stream) {
+  if (max_depth > kStack) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  const Rays rays = {(const float*)o, o_sl, o_sc, (const float*)d, d_sl, d_sc,
+                     (const float*)t_lim, n};
+  const Hits out = {(float*)t_out, (int*)tri_out, (float*)u_out, (float*)v_out};
+  const int blocks = (n + kThreads - 1) / kThreads;
+  trace_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float4*)nodes, (const float4*)tris, rays, t_min, any_hit, out);
   return (int)cudaGetLastError();
+}
+
+// What the compiler made of kernel A: registers a thread, static shared
+// memory and local memory (stack frame) in bytes a block / a thread, and
+// the blocks of kThreads an SM holds at once.
+extern "C" int vkrt_trace_info(int* regs, int* shared_bytes, int* local_bytes,
+                               int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, trace_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *shared_bytes = (int)attr.sharedSizeBytes;
+  *local_bytes = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, trace_kernel, kThreads, 0);
 }

@@ -1,11 +1,12 @@
 """Device choice and the CUDA kernels' build and load.
 
-``csrc/*.cu`` compile with ``nvcc`` into ``build/libvkrt_kernels.so`` at the
-first CUDA launch, keyed by a hash of the sources and flags, and load with
-``ctypes``. Each source compiles in its own ``nvcc`` process, all started
-together, and one ``nvcc`` links the objects. Each C entry point takes
-plain pointers and the CUDA stream and returns ``cudaGetLastError()``;
-``check`` turns a non-zero code into an exception. Nothing here runs at import: the CPU tests import every module
+``csrc/*.cu`` (with the headers ``csrc/*.cuh``) compile with ``nvcc`` into
+``build/libvkrt_kernels.so`` at the first CUDA launch, keyed by a hash of
+the sources and flags, and load with ``ctypes``. Each source compiles in
+its own ``nvcc`` process, all started together, and one ``nvcc`` links the
+objects. Each C entry point takes plain pointers and the CUDA stream and
+returns ``cudaGetLastError()``; ``check`` turns a non-zero code into an
+exception. Nothing here runs at import: the CPU tests import every module
 of the package on a machine with no ``nvcc``.
 """
 
@@ -39,13 +40,15 @@ _F = ctypes.c_float
 # argtypes of every C entry point, in the order of its parameters
 _SIGNATURES = {
     "vkrt_trace": [
-        _P, _I,              # nodes (M, 8), n_nodes
-        _P, _P, _P,          # tri v0, e1, e2 (T, 3)
+        _P, _P, _I,          # node records (I, 16), tri records (L, 12), tree depth
         _P, _L, _L,          # o, stride lane, stride component
         _P, _L, _L,          # d, stride lane, stride component
         _P, _I, _F, _I,      # t_lim, n, t_min, any_hit
         _P, _P, _P, _P,      # out t, tri, u, v
         _P,                  # stream
+    ],
+    "vkrt_trace_info": [     # out: registers, shared bytes, local bytes, blocks per SM
+        ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_I), ctypes.POINTER(_I),
     ],
     "vkrt_shade": [
         _P, _P, _P,          # carry (14, N), seed (N,), rays (7, N)
@@ -73,8 +76,7 @@ _SIGNATURES = {
     ],
     "vkrt_trace_ablate": [
         _I,                  # mode
-        _P, _I, _P, _I,      # nodes (M, 8), n_nodes, depth (M,), cut depth
-        _P, _P, _P,          # tri v0, e1, e2 (T, 3)
+        _P, _P, _I, _I,      # node records, tri records, tree depth, cut depth
         _P, _L, _L,          # o, stride lane, stride component
         _P, _L, _L,          # d, stride lane, stride component
         _P, _I, _F, _I,      # t_lim, n, t_min, any_hit
@@ -84,7 +86,7 @@ _SIGNATURES = {
     ],
     "vkrt_trace_variant": [
         _I, _I,              # variant, tree depth (ordered refuses > 64)
-        _P, _I,              # nodes (M, 8), n_nodes
+        _P, _I,              # threaded nodes (M, 8), n_nodes
         _P, _I, _I,          # cut node ids, n_cut, k_tris
         _P, _P, _P,          # tri v0, e1, e2 (T, 3)
         _P, _L, _L,          # o, stride lane, stride component
@@ -124,7 +126,7 @@ def _sources():
 
 def source_key() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in _sources():
+    for p in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()
@@ -182,6 +184,16 @@ def kernels() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def trace_info() -> dict:
+    """What the compiler made of kernel A (``vkrt_trace_info``): registers
+    a thread, static shared bytes a block, local-memory bytes a thread and
+    the blocks an SM holds at once."""
+    out = [ctypes.c_int() for _ in range(4)]
+    check("vkrt_trace_info", kernels().vkrt_trace_info(*map(ctypes.byref, out)))
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm"),
+                    (v.value for v in out)))
 
 
 def check(name: str, err: int) -> None:

@@ -1,12 +1,16 @@
 """Kernel A: the CUDA trace kernel (``csrc/trace.cu``) and its tracer.
 
 Replaces ``vkrt_tpu/ops/pallas/trace.py::_trace_kernel``. The tree is the
-threaded preorder SAH BVH of ``utils.native.build_sah_bvh`` (one
-triangle per leaf, skip links), built on the host and packed into one
-(M, 8) f32 node table. Leaves carry scene triangle ids, so there is no
-``tri_remap``. The TPU kernel's cluster tree, vote words, pre-pivoted
-tables and ``TraceSpec`` knobs exist only because Mosaic has no per-lane
-gathers and are not ported.
+threaded preorder SAH BVH of ``utils.native.build_sah_bvh`` (one triangle
+per leaf, skip links), built on the host and repacked here into what the
+kernel walks (``Bvh``): one 64-byte record per inner node holding both
+children's boxes and references (``pack_bvh2_nodes``), and one 48-byte
+record per triangle in leaf order (``pack_tris``). The threaded (M, 8)
+table (``pack_bvh_nodes``) is kept beside them for kernel E's ``threaded``
+and ``flat`` variants and for ``trace_rays_bvh``. Triangle records carry
+scene triangle ids, so there is no ``tri_remap``. The TPU kernel's cluster
+tree, vote words, pre-pivoted tables and ``TraceSpec`` knobs exist only
+because Mosaic has no per-lane gathers and are not ported.
 
 ``trace_kernel`` is the wrapper: on CUDA tensors it launches the kernel
 (or raises); on CPU tensors it runs the kernel's plain version, the brute
@@ -22,13 +26,15 @@ import torch
 
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.ops.intersect import T_MIN
-from vkrt_tpu_torch.ops.trace import RayHits, Tracer, trace_rays_bruteforce
+from vkrt_tpu_torch.ops.trace import (
+    WALK_STACK, Bvh, RayHits, Tracer, trace_rays_bruteforce,
+)
 from vkrt_tpu_torch.scene import SceneTensors
 from vkrt_tpu_torch.utils import native
 
 
 def pack_bvh_nodes(node_min, node_max, node_skip, node_tri) -> np.ndarray:
-    """The four arrays of native.build_sah_bvh -> the kernel's (M, 8) f32
+    """The four arrays of native.build_sah_bvh -> the threaded (M, 8) f32
     node table, rows [min.xyz | skip (i32 bits) | max.xyz | tri (i32
     bits)] with tri = -1 at inner nodes."""
     nodes = np.zeros((len(node_min), 8), np.float32)
@@ -39,22 +45,95 @@ def pack_bvh_nodes(node_min, node_max, node_skip, node_tri) -> np.ndarray:
     return nodes
 
 
+def node_depths(skip: np.ndarray, tri: np.ndarray) -> np.ndarray:
+    """Depth of every node of a threaded preorder tree: the children of
+    inner node i are i + 1 and skip[i + 1]."""
+    depth = np.zeros(len(skip), np.int32)
+    level, frontier = 0, np.zeros(1, np.int64)
+    while frontier.size:
+        depth[frontier] = level
+        inner = frontier[tri[frontier] < 0]
+        frontier = np.concatenate([inner + 1, skip[inner + 1]])
+        level += 1
+    return depth
+
+
+def pack_bvh2_nodes(node_min, node_max, node_skip, node_tri):
+    """The threaded tree -> (records, leaf_tri, depth).
+
+    ``records``: (I, 16) f32, one row per inner node in preorder, four
+    float4: [left min.xyz | left ref], [left max.xyz | right ref],
+    [right min.xyz | the node's depth], [right max.xyz | 0], integers as
+    i32 bits. A reference >= 0 is a row of ``records``; a leaf is ``~slot``
+    with ``slot`` its place in ``leaf_tri``. There are no leaf rows.
+    ``leaf_tri``: (L,) int32 scene triangle ids in leaf (preorder) order.
+    ``depth``: the most inner nodes on a path from the root, which is the
+    most stack entries a front-to-back walk holds.
+
+    A root that is a leaf (a one-triangle scene) becomes one record whose
+    two children are both that leaf: the second test of the triangle
+    changes nothing (an equal t goes to the lower id, and it is the same
+    id)."""
+    skip = np.asarray(node_skip, np.int64)
+    tri = np.asarray(node_tri, np.int32)
+    lo, hi = np.asarray(node_min, np.float32), np.asarray(node_max, np.float32)
+    is_leaf = tri >= 0
+    leaf_tri = tri[is_leaf]
+    # a node's reference: its row among the inner nodes, or ~its leaf slot
+    ref = np.where(is_leaf, ~(np.cumsum(is_leaf) - 1), np.cumsum(~is_leaf) - 1).astype(np.int32)
+    inner = np.nonzero(~is_leaf)[0]
+    depth = node_depths(skip, tri)
+    if inner.size == 0:  # the root is a leaf
+        left = right = np.zeros(1, np.int64)
+        rec_depth = np.zeros(1, np.int32)
+    else:
+        left, right = inner + 1, skip[inner + 1]
+        rec_depth = depth[inner]
+    rec = np.zeros((len(left), 16), np.float32)
+    rec[:, 0:3], rec[:, 4:7] = lo[left], hi[left]
+    rec[:, 8:11], rec[:, 12:15] = lo[right], hi[right]
+    rec[:, 3] = ref[left].view(np.float32)
+    rec[:, 7] = ref[right].view(np.float32)
+    rec[:, 11] = rec_depth.view(np.float32)
+    return rec, leaf_tri, int(rec_depth.max()) + 1
+
+
+def pack_tris(v0, e1, e2, leaf_tri) -> np.ndarray:
+    """(L, 12) f32 triangle records in leaf order, three float4:
+    [v0.xyz | scene triangle id (i32 bits)], [e1.xyz | 0], [e2.xyz | 0]."""
+    leaf_tri = np.asarray(leaf_tri, np.int32)
+    rec = np.zeros((len(leaf_tri), 12), np.float32)
+    rec[:, 0:3], rec[:, 4:7], rec[:, 8:11] = v0[leaf_tri], e1[leaf_tri], e2[leaf_tri]
+    rec[:, 3] = leaf_tri.view(np.float32)
+    return rec
+
+
+def _tri_arrays(scene: SceneTensors):
+    return [np.asarray(t.detach().cpu(), np.float32)
+            for t in (scene.tri_v0, scene.tri_e1, scene.tri_e2)]
+
+
 def build_bvh_arrays(scene: SceneTensors):
     """(node_min, node_max, node_skip, node_tri) from the native SAH
     builder (compiled at first use; a failed build raises: there is no
     Morton fallback)."""
-    arrs = [np.asarray(t.detach().cpu(), np.float32)
-            for t in (scene.tri_v0, scene.tri_e1, scene.tri_e2)]
-    res = native.build_sah_bvh(*arrs)
+    res = native.build_sah_bvh(*_tri_arrays(scene))
     if res is None:
         raise ValueError("scene has no non-degenerate triangle to build a BVH over")
     return res
 
 
-def build_bvh(scene: SceneTensors) -> torch.Tensor:
-    """The scene's (M, 8) node table on the scene's device."""
-    return torch.as_tensor(pack_bvh_nodes(*build_bvh_arrays(scene)),
-                           device=scene.device)
+def build_bvh(scene: SceneTensors) -> Bvh:
+    """The scene's BVH tables on the scene's device: what kernel A walks,
+    and the threaded table beside it."""
+    arrays = build_bvh_arrays(scene)
+    records, leaf_tri, depth = pack_bvh2_nodes(*arrays)
+
+    def put(a):
+        return torch.as_tensor(a, device=scene.device)
+
+    return Bvh(nodes=put(records), tris=put(pack_tris(*_tri_arrays(scene), leaf_tri)),
+               depth=depth, threaded=put(pack_bvh_nodes(*arrays)))
 
 
 def _check_f32(name, t, shape):
@@ -82,7 +161,8 @@ def check_rays(name: str, o, d, t_lim, tables=()) -> int:
 
 
 def check_scene(nodes: torch.Tensor, scene: SceneTensors):
-    """The node table and triangle tables a traversal kernel reads."""
+    """The threaded node table and the scene's triangle tables, which
+    kernel E's variants read."""
     n_tris = scene.tri_v0.shape[0]
     _check_f32("nodes", nodes, (nodes.shape[0], 8))
     for name in ("tri_v0", "tri_e1", "tri_e2"):
@@ -90,22 +170,36 @@ def check_scene(nodes: torch.Tensor, scene: SceneTensors):
     return (nodes, scene.tri_v0, scene.tri_e1, scene.tri_e2)
 
 
-def trace_kernel(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
+def check_bvh(bvh: Bvh):
+    """The record tables kernels A and D walk. A tree deeper than the
+    walk's stack is refused (on the CPU too, so that both devices take the
+    same scenes)."""
+    _check_f32("bvh.nodes", bvh.nodes, (bvh.nodes.shape[0], 16))
+    _check_f32("bvh.tris", bvh.tris, (bvh.tris.shape[0], 12))
+    if bvh.nodes.shape[0] < 1 or bvh.tris.shape[0] < 1:
+        raise ValueError("empty BVH")
+    if bvh.depth > WALK_STACK:
+        raise ValueError(f"tree depth {bvh.depth} exceeds the walk's "
+                         f"{WALK_STACK}-entry stack")
+    return (bvh.nodes, bvh.tris)
+
+
+def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
                  t_min: float = T_MIN, any_hit: bool = False) -> RayHits:
     """Trace (N,3) o and d with (N,) limits; the kernel's contract (see
     ``ops/trace.py``). ``o`` and ``d`` may be strided views, e.g. rows of a
     (7, N) ray block transposed; ``t_lim`` must be contiguous."""
     if o.device.type == "cpu":
+        check_bvh(bvh)
         return trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2,
                                      o, d, t_lim, t_min)
-    n = check_rays("trace_kernel", o, d, t_lim, check_scene(nodes, scene))
+    n = check_rays("trace_kernel", o, d, t_lim, check_bvh(bvh))
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
     v = torch.empty(n, dtype=torch.float32, device=o.device)
     err = dev.kernels().vkrt_trace(
-        nodes.data_ptr(), nodes.shape[0],
-        scene.tri_v0.data_ptr(), scene.tri_e1.data_ptr(), scene.tri_e2.data_ptr(),
+        bvh.nodes.data_ptr(), bvh.tris.data_ptr(), bvh.depth,
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min), int(any_hit),
@@ -124,12 +218,12 @@ trace_kernel.launches = 0
 class CudaTracer(Tracer):
     """Tracer running kernel A over the scene's BVH."""
 
-    nodes: torch.Tensor = None  # build_bvh's node table
+    bvh: Bvh = None  # build_bvh's tables
 
     def trace(self, o, d, t_lim, t_min: float = T_MIN,
               any_hit: bool = False) -> RayHits:
-        return trace_kernel(self.nodes, self.scene, o, d, t_lim, t_min, any_hit)
+        return trace_kernel(self.bvh, self.scene, o, d, t_lim, t_min, any_hit)
 
 
 def make_cuda_tracer(scene: SceneTensors) -> CudaTracer:
-    return CudaTracer(scene=scene, nodes=build_bvh(scene))
+    return CudaTracer(scene=scene, bvh=build_bvh(scene))

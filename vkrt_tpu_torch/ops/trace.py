@@ -5,11 +5,13 @@ Port of ``vkrt_tpu/ops/trace.py``. Two tracers share one API:
 * ``Tracer`` — brute force over all triangles, in ray chunks and triangle
   blocks. It is the correctness oracle and the plain version of the CUDA
   trace kernel, and the tracer ``make_tracer`` gives a scene on the CPU.
-* ``CudaTracer`` (``ops/cuda/trace.py``) — the CUDA trace kernel over a
-  threaded SAH BVH, for a scene on a CUDA device.
+* ``CudaTracer`` (``ops/cuda/trace.py``) — the CUDA trace kernel over the
+  SAH BVH's child-box records (``Bvh``), for a scene on a CUDA device.
 
-``trace_rays_bvh`` is that kernel's walk in plain torch: the plain version
-of the trace probes' visit counts (``ops/cuda/trace_variants.py``).
+``trace_rays_bvh_ordered`` is that kernel's front-to-back walk in plain
+torch, the plain version of the trace probes' visit counts
+(``ops/cuda/trace_variants.py``); ``trace_rays_bvh`` is the stackless walk
+over the threaded table, which kernel E's ``threaded`` variant keeps.
 
 Both implement ``trace`` with the trace kernel's contract (the Pallas
 kernel's, ``vkrt_tpu/ops/pallas/trace.py``): per-lane limit ``t_lim``, a
@@ -126,8 +128,21 @@ def trace_any_bruteforce(tri_v0, tri_e1, tri_e2, orig, direction, t_min, t_max):
 SLAB_SCALE = float(np.float32(1.0) + np.float32(2.0) * np.float32(1.7881396e-7))
 
 
+# the front-to-back walk's stack entries (csrc/walk.cuh): one per level
+WALK_STACK = 32
+
+
+class Bvh(NamedTuple):
+    """A scene's BVH tables (``ops/cuda/trace.py::build_bvh``)."""
+
+    nodes: torch.Tensor     # (I, 16) f32 child-box records (pack_bvh2_nodes)
+    tris: torch.Tensor      # (L, 12) f32 triangle records in leaf order
+    depth: int              # the most stack entries a walk of it holds
+    threaded: torch.Tensor  # (M, 8) f32 threaded table (pack_bvh_nodes)
+
+
 class BvhCounts(NamedTuple):
-    """Per-ray work of a threaded-BVH walk."""
+    """Per-ray work of a BVH walk."""
 
     nodes: torch.Tensor   # (N,) int32 slab tests
     leaves: torch.Tensor  # (N,) int32 Moller-Trumbore tests
@@ -143,11 +158,13 @@ def unpack_nodes(nodes: torch.Tensor):
 def trace_rays_bvh(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
                    t_min: float = T_MIN, any_hit: bool = False,
                    count: bool = False):
-    """Kernel A's walk in plain torch, vectorised over rays: the
-    counterpart of ``vkrt_tpu/ops/trace.py::trace_closest_bvh`` /
-    ``trace_any_bvh`` with kernel A's contract (per-lane ``t_lim``,
-    first-hit-kills lanes, the miss record) and its widened slab test, so
-    with ``count=True`` its visit counts are the kernel's. One current node
+    """The stackless walk over the threaded table (kernel E's ``threaded``)
+    in plain torch, vectorised over rays: the counterpart of
+    ``vkrt_tpu/ops/trace.py::trace_closest_bvh`` / ``trace_any_bvh`` with
+    kernel A's contract (per-lane ``t_lim``, first-hit-kills lanes, the
+    miss record) and its widened slab test; an equal-t tie goes to the
+    triangle met first. With ``count=True`` it counts the slab and
+    triangle tests that walk makes. One current node
     per ray; each step advances every live ray by one node (box hit at an
     inner node -> node + 1, otherwise the skip link) until all are done.
     Returns ``RayHits``, or ``(RayHits, BvhCounts)`` with ``count``."""
@@ -196,9 +213,111 @@ def trace_rays_bvh(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
     return (hits, BvhCounts(visits, leaves)) if count else hits
 
 
+def _slab(lo, hi, o, inv, t_min, best):
+    """Kernel A's widened slab test of (A,3) boxes against (A,3) rays:
+    (hit, entry distance)."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    mn, mx = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    tnear = torch.fmax(torch.fmax(torch.fmax(mn[:, 0], mn[:, 1]), mn[:, 2]), t_min)
+    tfar = torch.fmin(torch.fmin(torch.fmin(mx[:, 0], mx[:, 1]), mx[:, 2]), best)
+    return tnear <= tfar * SLAB_SCALE, tnear
+
+
+def trace_rays_bvh_ordered(bvh: Bvh, o, d, t_lim, t_min: float = T_MIN,
+                           any_hit: bool = False, count: bool = False):
+    """Kernel A's walk in plain torch, vectorised over rays, with kernel
+    A's contract, arithmetic and tie rule, so its hits are the kernel's bit
+    for bit and, with ``count=True``, its visit counts are kernel D's.
+
+    Each ray holds a current reference and a stack of (reference, entry
+    distance) pairs. At an inner record both child boxes are tested against
+    (t_min, best): the walk goes on into the nearer one that is hit and
+    pushes the farther. At a leaf the triangle is tested; a hit at an equal
+    t goes to the lower scene triangle id, and ends a first-hit-kills lane.
+    Then the newest stack entry still within best (widened as the slab
+    test is) is taken, and the walk ends when there is none.
+
+    A record costs two slab tests.
+    Returns ``RayHits``, or ``(RayHits, BvhCounts)`` with ``count``."""
+    if bvh.depth > WALK_STACK:
+        raise ValueError(f"tree depth {bvh.depth} exceeds the walk's "
+                         f"{WALK_STACK}-entry stack")
+    dev = o.device
+    n = o.shape[0]
+    rec = bvh.nodes.view(-1, 4, 4)
+    rec_bits = bvh.nodes.view(torch.int32).view(-1, 4, 4)
+    tri_rec = bvh.tris.view(-1, 3, 4)
+    tri_id = bvh.tris.view(torch.int32)[:, 3]
+    inv = safe_inv_dir(d)
+    t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    best = t_lim.abs().clone()
+    btri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    bu = torch.zeros(n, dtype=torch.float32, device=dev)
+    bv = torch.zeros(n, dtype=torch.float32, device=dev)
+    kill = (t_lim < 0) | any_hit
+    visits = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaves = torch.zeros(n, dtype=torch.int32, device=dev)
+    stack_ref = torch.zeros((n, bvh.depth), dtype=torch.long, device=dev)
+    stack_t = torch.zeros((n, bvh.depth), dtype=torch.float32, device=dev)
+    sp = torch.zeros(n, dtype=torch.long, device=dev)
+    ray = torch.arange(n, device=dev)                   # live rays
+    ref = torch.zeros(n, dtype=torch.long, device=dev)  # their references
+    while ray.numel():
+        pop = torch.zeros_like(ray, dtype=torch.bool)   # rays that need a stack entry
+        at_inner = ref >= 0
+        if bool(at_inner.any()):
+            r, k = ray[at_inner], ref[at_inner]
+            visits[r] += 2
+            hl, tl = _slab(rec[k, 0, :3], rec[k, 1, :3], o[r], inv[r], t_min_t, best[r])
+            hr, tr = _slab(rec[k, 2, :3], rec[k, 3, :3], o[r], inv[r], t_min_t, best[r])
+            cl, cr = rec_bits[k, 0, 3].long(), rec_bits[k, 1, 3].long()
+            both = hl & hr
+            left_first = tl <= tr
+            rb, spb = r[both], sp[r[both]]
+            stack_ref[rb, spb] = torch.where(left_first, cr, cl)[both]
+            stack_t[rb, spb] = torch.where(left_first, tr, tl)[both]
+            sp[rb] += 1
+            ref[at_inner] = torch.where(both, torch.where(left_first, cl, cr),
+                                        torch.where(hl, cl, cr))
+            pop[at_inner] = ~(hl | hr)
+        done = torch.zeros_like(pop)
+        at_leaf = ~at_inner
+        if bool(at_leaf.any()):
+            r, slot = ray[at_leaf], ~ref[at_leaf]
+            leaves[r] += 1
+            pop[at_leaf] = True
+            hit, th, uh, vh = _mt_pairs(o[r], d[r], tri_rec[slot, 0, :3], tri_rec[slot, 1, :3],
+                                        tri_rec[slot, 2, :3], t_min_t, None)
+            tid = tri_id[slot]
+            hit &= (th < best[r]) | ((th == best[r]) & (tid < btri[r]))
+            rh = r[hit]
+            best[rh], btri[rh], bu[rh], bv[rh] = th[hit], tid[hit], uh[hit], vh[hit]
+            ended = torch.zeros_like(hit)
+            ended[hit] = kill[rh]
+            done[at_leaf] = ended
+        # pop: the newest entry whose entry distance is still within best
+        want = pop & ~done
+        while bool(want.any()):
+            empty = want & (sp[ray] == 0)
+            done |= empty
+            want &= ~empty
+            r = ray[want]
+            sp[r] -= 1
+            ok = stack_t[r, sp[r]] <= best[r] * SLAB_SCALE
+            taken = want.clone()
+            taken[want] = ok
+            ref[taken] = stack_ref[r[ok], sp[r[ok]]]
+            want &= ~taken
+        ray, ref = ray[~done], ref[~done]
+    hits = RayHits(best, btri, bu, bv)
+    return (hits, BvhCounts(visits, leaves)) if count else hits
+
+
 def _mt_pairs(o, d, v0, e1, e2, t_min, t_max):
     """``mt_block`` for (A,3) rays against (A,3) triangles, pair by pair,
-    in its operation order."""
+    in its operation order. ``t_max`` None leaves the far bound to the
+    caller."""
     pvec = _cross(d, e2)
     det = _dot(e1, pvec)
     ok = det.abs() > _DET_EPS
@@ -208,7 +327,9 @@ def _mt_pairs(o, d, v0, e1, e2, t_min, t_max):
     qvec = _cross(tvec, e1)
     v = _dot(d, qvec) * inv_det
     t = _dot(e2, qvec) * inv_det
-    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
+    if t_max is not None:
+        hit = hit & (t < t_max)
     return hit, t, u, v
 
 
