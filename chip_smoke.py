@@ -36,8 +36,17 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    ``boxes`` and ``top`` the miss record, ``count``'s visit columns equal
    to the plain front-to-back walk (``trace_rays_bvh_ordered``) on every
    city primary and on 4,096-ray subsamples of the other sets; E's
-   variants against kernel A (``mt128`` against brute force over its 128
-   triangles) by phase 2's rule, equal-t ties allowed. For kernel A on both
+   variants ``threaded``, ``binary``, ``ordered`` and ``flat`` bit-equal to
+   kernel A in t, u, v and triangle id on every ray (``mt128`` to brute
+   force over its 128 triangles); ``ordered``'s counts (slab tests, one a
+   child a record holds; triangle tests; records) equal to the plain wide
+   walk (``trace_rays_bvh_wide``) on every tiled ray of both scenes and on
+   4,096-ray subsamples of the incoherent sets; phase 2's first-hit-kills shadow
+   pool through ``ordered`` and ``threaded``, verdicts against kernel A.
+   Every variant gets its bound on every ray set: ``ordered`` from its own
+   counts, ``binary`` from kernel D's, ``threaded`` and ``flat`` from the
+   plain stackless walk (``flat``'s from a 4,096-ray subsample of each
+   set, scaled to the set), ``mt128`` in closed form. For kernel A on both
    scenes and all four ray sets (closest / any x primary / incoherent) a
    line gives its time beside E ``threaded``'s (the stackless walk that was
    kernel A's first design) on the same rays, the visits a ray and the SIMT
@@ -82,7 +91,7 @@ FP32_INSTR_PER_S = FP32_FLOPS / 2
 # traversal kernels (csrc/trace.cu), counted from the source: none of them
 # is a fused multiply-add
 SLAB_OPS, MT_OPS = 26, 52
-PROBE_VARIANTS = ("threaded", "ordered", "flat", "mt128")
+PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
 
 
 def log(msg: str) -> None:
@@ -125,10 +134,34 @@ def walk_tables(bvh):
     return (bvh.nodes, bvh.tris)
 
 
-def threaded_tables(bvh, scene):
-    """What kernel E's variants read: the threaded table and the scene's
-    triangle tables."""
-    return (bvh.threaded, scene.tri_v0, scene.tri_e1, scene.tri_e2)
+def variant_tables(tables, variant: str):
+    """What a variant of kernel E reads: its node table(s) and the triangle
+    records (``mt<K>``: its K records alone)."""
+    if variant.startswith("mt"):
+        return (tables.scene_tris[:int(variant[2:])],)
+    if variant == "ordered":
+        return (tables.wide.nodes, tables.bvh.tris)
+    if variant == "flat":
+        return (tables.cut_boxes, tables.threaded, tables.bvh.tris)
+    return (tables.threaded, tables.bvh.tris)
+
+
+def flat_counts(b, o, d, t_lim):
+    """The slab and triangle tests of variant ``flat`` on rays whose limit
+    exceeds t_min: every box of the cut, then the stackless walk below each
+    cut node that is hit. That is the plain stackless walk over a table
+    whose inner nodes above the cut hold all of space, less those nodes."""
+    import torch
+
+    from vkrt_tpu_torch.ops.trace import BvhCounts, trace_rays_bvh
+
+    tables = b.tables
+    above = (tables.depth < tables.cut_depth) & (tables.bvh.threaded.view(torch.int32)[:, 7] < 0)
+    nodes = tables.bvh.threaded.clone()
+    nodes[above, 0:3] = -float("inf")
+    nodes[above, 4:7] = float("inf")
+    _, cnt = trace_rays_bvh(nodes, b.scene, o, d, t_lim, count=True)
+    return BvhCounts(cnt.nodes - int(above.sum()), cnt.leaves)
 
 
 def compare_trace(name, k, p, t_lim, ties: bool = True) -> float:
@@ -230,6 +263,8 @@ def random_rays(n, seed, device):
 
 
 def phase_kernels(dev, results):
+    """Phases 2 and 3; returns bounce 0's first-hit-kills shadow pool (o, d,
+    t_lim) for phase 6."""
     import torch
 
     from vkrt_tpu_torch.models.pathtracer import corr_seed_for
@@ -317,6 +352,8 @@ def phase_kernels(dev, results):
         sh = out.shadow_rays
         sh_o, sh_d, sh_l = sh[0:3].T, sh[3:6].T, sh[6]
         k = tracer.trace(sh_o, sh_d, sh_l)
+        if dd == 0:
+            shadow_pool = (sh_o, sh_d, sh_l)
         errs.append(compare_trace(f"shadow pool d={dd}", k, plain(sh_o, sh_d, sh_l), sh_l,
                                   ties=False))
         if dd == 0:
@@ -338,6 +375,7 @@ def phase_kernels(dev, results):
     plain_ms = cuda_ms(lambda: plain(o, d, lim, soup), reps=2)
     log(f"[trace] soup 16384 tris, 65536 rays: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
     results["trace"]["max_abs_err"] = max(errs)
+    return shadow_pool
 
 
 def phase_main_path(dev, results):
@@ -449,15 +487,16 @@ def check_equal(name, a, b) -> None:
                                  f"{int((x != y).sum())} of {x.numel()} elements")
 
 
-def phase_probes(dev, results):
+def phase_probes(dev, results, shadow_pool):
     """Phase 6: the trace-probe entry points at full size, their launch
     counts, then every probe kernel against its plain version."""
     t_phase = time.perf_counter()
     run = drive_probes(dev)
-    log(f"[probes] launches on the probe path: {run['launches']}")
+    log(f"[probes] launches on the probe path: {run['launches']}; the entry points took "
+        f"{time.perf_counter() - t_phase:.1f} s")
     if not all(run["launches"].values()):
         raise AssertionError(f"a probe kernel was never launched: {run['launches']}")
-    check_probes(dev, run, results)
+    check_probes(dev, run, results, shadow_pool)
     log(f"[probes] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -497,7 +536,7 @@ def drive_probes(dev) -> dict:
     return run
 
 
-def check_probes(dev, run, results) -> None:
+def check_probes(dev, run, results, shadow_pool) -> None:
     """Every probe kernel against its plain version; fills ``results``."""
     import torch
 
@@ -506,12 +545,21 @@ def check_probes(dev, run, results) -> None:
         FLOOR_THREADS, fma_flops, fma_peak, fma_peak_plain, floor_kernel, floor_plain,
         miss_record,
     )
+    from vkrt_tpu_torch.benchmarks.ablate_kernel import visit_stats
+    from vkrt_tpu_torch.ops.cuda.trace_variants import trace_variant
     from vkrt_tpu_torch.ops.trace import (
         BvhCounts, RayHits, trace_rays_bruteforce, trace_rays_bvh_ordered,
+        trace_rays_bvh_wide,
     )
 
     built, mt, ab, va, fp = (run[k] for k in ("built", "mt", "ab", "va", "fp"))
     launches = run["launches"]
+    laps, t_lap = {}, [time.perf_counter()]
+
+    def lap(what):  # the host seconds since the last lap, under ``what``
+        sync(dev)
+        laps[what] = time.perf_counter() - t_lap[0]
+        t_lap[0] = time.perf_counter()
 
     # C: the miss record at every block size
     n = mt["cornell"]["rays"]
@@ -559,6 +607,7 @@ def check_probes(dev, run, results) -> None:
                            "ms": fp["ms"], "plain_ms": f_plain_ms, "bound_ms": f_bound[0],
                            "bound_by": f_bound[1], "library_ms": None, "tflops": fp["tflops"]}
 
+    lap("C and F")
     # A: against brute force on 65,536 subsampled rays (any: the verdict
     # of a closest hit nearer than the any bound); then, per ray set, its
     # time beside the stackless walk's (E threaded, same rays), the visits
@@ -585,6 +634,7 @@ def check_probes(dev, run, results) -> None:
     results["trace"]["max_abs_err"] = max(results["trace"]["max_abs_err"], *errs)
     results["trace"]["ray_sets"] = {" ".join(k): v for k, v in a_sets.items()}
 
+    lap("A")
     # D: full and count bit-equal to kernel A, boxes/top the miss record,
     # count's columns equal to the plain front-to-back walk
     for name, b in built.items():
@@ -639,59 +689,111 @@ def check_probes(dev, run, results) -> None:
                     "bound_by": d_b[1], "library_ms": None,
                     "modes_ms": {m: r[m]["ms"] for m in ablate_kernel.MODES}}
 
-    # E: every variant against kernel A on both ray sets (mt256 against
-    # brute force over its 128 triangles)
-    e_err = []
+    lap("D")
+    # E: threaded, binary, ordered and flat bit-equal to kernel A on every
+    # ray of both sets (mt128 to brute force over its 128 triangles);
+    # ordered's counts equal to the plain wide walk's; then every variant's
+    # bound from this run's visits. The tiled rays are the primary rays in
+    # another order, so kernel D's and the stackless walk's sums are theirs.
+    e_err, e_sets, plain_s = [], {}, {"wide": 0.0, "flat": 0.0}
     for name, b in built.items():
-        sc = b.scene
-        for kind in ("tiled", "incoherent"):
+        sc, tables = b.scene, b.tables
+        # flat has no count instantiation: its tests are its plain walk's on a
+        # 4,096-ray subsample of each set, scaled to the set. The walk's time is
+        # its longest ray's steps, so both sets go through it in one call.
+        sets = [va[name][kind] for kind in ("tiled", "incoherent")]
+        sub = subsample(sets[0]["o"].shape[0], 4096).to(dev)
+        t0 = time.perf_counter()
+        f_both = flat_counts(b, *(torch.cat([r[x][sub] for r in sets]) for x in ("o", "d")),
+                             torch.cat([r["threaded"]["t_lim"][sub] for r in sets]))
+        sync(dev)
+        plain_s["flat"] += time.perf_counter() - t0
+        f_sub = dict(zip(("tiled", "incoherent"),
+                         (BvhCounts(*(c[k:k + sub.shape[0]] for c in f_both))
+                          for k in (0, sub.shape[0]))))
+        for kind, a_kind in (("tiled", "primary"), ("incoherent", "incoherent")):
             r = va[name][kind]
-            lim = r["threaded"]["t_lim"]
-            a_hits = b.tracer.trace(r["o"], r["d"], lim)
+            o, d, lim = r["o"], r["d"], r["threaded"]["t_lim"]
+            n_k = o.shape[0]
+            a_hits = b.tracer.trace(o, d, lim)
+            e_sets[f"{name} {kind}"] = row = {
+                "kernel_a_ms": cuda_ms(lambda: b.tracer.trace(o, d, lim), reps=8)}
             for v in PROBE_VARIANTS:
+                p = a_hits
                 if v.startswith("mt"):
                     k = int(v[2:])
                     p = trace_rays_bruteforce(sc.tri_v0[:k], sc.tri_e1[:k], sc.tri_e2[:k],
-                                              r["o"], r["d"], lim)
-                else:
-                    p = a_hits
-                e_err.append(compare_trace(f"{name} {kind} {v} ({r[v]['ms']:.4f} ms, "
-                                           f"{r[v]['mrays']:.2f} Mrays/s)", r[v]["hits"], p, lim))
-    # E's bounds: threaded from the stackless walk's visits, ordered from
-    # kernel D's count (its walk tests the same boxes and the root's, one
-    # more slab test a ray); the tiled rays are the primary rays in another
-    # order, so the sums are theirs
-    e_sets = {}
-    for name, b in built.items():
-        tabs = threaded_tables(b.tables.bvh, b.scene)
-        for kind, a_kind in (("tiled", "primary"), ("incoherent", "incoherent")):
-            r, n_k = va[name][kind], va[name][kind]["o"].shape[0]
+                                              o, d, lim)
+                e_err.append(compare_trace(f"E {name} {kind} {v}", r[v]["hits"], p, lim,
+                                           ties=False))
+                check_equal(f"E {name} {kind} {v} bit for bit", r[v]["hits"], p)
+            hits, cnt = trace_variant("ordered", tables, sc, o, d, lim, count=True)
+            check_equal(f"E {name} {kind} ordered with counts", hits, a_hits)
+            # the plain wide walk: on every tiled ray, on 4,096 of the incoherent
+            idx = torch.arange(n_k, device=dev) if kind == "tiled" else sub
+            t0 = time.perf_counter()
+            walk, want = trace_rays_bvh_wide(tables.wide, o[idx], d[idx], lim[idx], count=True)
+            sync(dev)
+            row["ordered_plain_ms"] = (time.perf_counter() - t0) * 1e3
+            check_equal(f"E {name} {kind} ordered's counts vs trace_rays_bvh_wide",
+                        tuple(c[idx] for c in cnt), tuple(want))
+            check_equal(f"E {name} {kind} trace_rays_bvh_wide hits vs kernel A", walk,
+                        pick(a_hits, idx))
+            plain_s["wide"] += row["ordered_plain_ms"] * 1e-3
+            row["flat_bound_from"] = f"{sub.shape[0]} of {n_k} rays"
+            f_cnt = BvhCounts(*(c.double() * (n_k / sub.shape[0]) for c in f_sub[kind]))
+            d_cnt = ab[name][a_kind]["count"]["counts"]
+            visits = {"ordered": cnt,
+                      "binary": BvhCounts(d_cnt.nodes + 1, d_cnt.leaves),  # and the root's box
+                      "flat": f_cnt,
+                      "mt128": BvhCounts(torch.zeros(1), torch.tensor(128 * n_k))}
             a_set = a_sets[(name, a_kind, "closest")]
-            cnt = ab[name][a_kind]["count"]["counts"]
-            ordered = BvhCounts(cnt.nodes + 1, cnt.leaves)
-            e_sets[f"{name} {kind}"] = row = {
-                "threaded_ms": r["threaded"]["ms"], "ordered_ms": r["ordered"]["ms"],
-                "flat_ms": r["flat"]["ms"], "mt128_ms": r["mt128"]["ms"]}
-            row["threaded_bound_ms"], row["threaded_bound_by"] = (
-                a_set["threaded_bound_ms"], a_set["threaded_bound_by"])
-            row["ordered_bound_ms"], row["ordered_bound_by"] = trace_bound(tabs, n_k, ordered)
-            log(f"[probes] E {name} {kind}: threaded {row['threaded_ms']:.4f} ms (bound "
-                f"{row['threaded_bound_ms']:.4f} ms, {row['threaded_bound_by']}), ordered "
-                f"{row['ordered_ms']:.4f} ms (bound {row['ordered_bound_ms']:.4f} ms, "
-                f"{row['ordered_bound_by']}), flat {row['flat_ms']:.4f} ms, mt128 "
-                f"{row['mt128_ms']:.4f} ms")
+            for v in PROBE_VARIANTS:
+                row[f"{v}_ms"] = r[v]["ms"]
+                if v == "threaded":
+                    row["threaded_bound_ms"], row["threaded_bound_by"] = (
+                        a_set["threaded_bound_ms"], a_set["threaded_bound_by"])
+                else:
+                    row[f"{v}_bound_ms"], row[f"{v}_bound_by"] = trace_bound(
+                        variant_tables(tables, v), n_k, visits[v])
+            # a record is one step of the wide walk; its slab tests are the
+            # children it holds, so an empty slot's test is no part of the bound
+            st = visit_stats(BvhCounts(cnt.records, cnt.leaves))
+            row.update({"ordered_slab_tests": float(cnt.nodes.double().mean()),
+                        "ordered_records": st["nodes"]["mean"],
+                        "ordered_triangle_tests": st["leaves"]["mean"],
+                        "ordered_simt_efficiency": st["simt_efficiency"],
+                        "flat_slab_tests": float(f_cnt.nodes.sum()) / n_k,
+                        "flat_triangle_tests": float(f_cnt.leaves.sum()) / n_k})
+            log(f"[probes] E {name} {kind} (kernel A {row['kernel_a_ms']:.4f} ms): "
+                + ", ".join(f"{v} {row[f'{v}_ms']:.4f} ms (bound {row[f'{v}_bound_ms']:.4f} "
+                            f"{row[f'{v}_bound_by']})" for v in PROBE_VARIANTS)
+                + f"; ordered {row['ordered_slab_tests']:.2f} slab + "
+                f"{row['ordered_triangle_tests']:.2f} triangle tests a ray in "
+                f"{row['ordered_records']:.2f} records, SIMT efficiency "
+                f"{row['ordered_simt_efficiency']:.4f}; flat {row['flat_slab_tests']:.2f} + "
+                f"{row['flat_triangle_tests']:.2f} (counted on {row['flat_bound_from']})")
+    lap("E")
+    log("[probes] checks, host seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+        + f" (of E's: trace_rays_bvh_wide {plain_s['wide']:.1f}, flat's stackless walk "
+        f"{plain_s['flat']:.1f})")
+    # phase 2's first-hit-kills shadow pool through the two variants that
+    # end such a lane at its first hit: the verdicts are kernel A's
     cb = built["cornell"]
-    r = va["cornell"]["tiled"]
-    lim = r["threaded"]["t_lim"]
+    so, sd, sl = shadow_pool
+    a_any = cb.tracer.trace(so, sd, sl).tri >= 0
+    for v in ("ordered", "threaded"):
+        check_equal(f"E {v} verdicts on the shadow pool",
+                    (trace_variant(v, cb.tables, cb.scene, so, sd, sl).tri >= 0,), (a_any,))
+    log(f"[probes] E shadow pool ({sl.shape[0]} first-hit-kills lanes, {int(a_any.sum())} "
+        f"occluded): ordered's and threaded's verdicts are kernel A's")
+    top = e_sets["cornell tiled"]
     results["trace_variant"] = {
         "launches": launches["trace_variant"], "max_abs_err": max(e_err),
-        "ms": r["ordered"]["ms"],
-        "plain_ms": cuda_ms(lambda: trace_rays_bruteforce(cb.scene.tri_v0, cb.scene.tri_e1,
-                                                          cb.scene.tri_e2, r["o"], r["d"], lim),
-                            reps=2),
-        "bound_ms": e_sets["cornell tiled"]["ordered_bound_ms"],
-        "bound_by": e_sets["cornell tiled"]["ordered_bound_by"], "library_ms": None,
-        "city_ms": va["city"]["tiled"]["ordered"]["ms"], "ray_sets": e_sets}
+        "ms": top["ordered_ms"], "plain_ms": top["ordered_plain_ms"],
+        "bound_ms": top["ordered_bound_ms"], "bound_by": top["ordered_bound_by"],
+        "library_ms": None, "city_ms": e_sets["city tiled"]["ordered_ms"],
+        "ray_sets": e_sets}
 
 
 def ray_set_report(name, b, o, d, a_run, any_hit: bool) -> dict:
@@ -717,7 +819,7 @@ def ray_set_report(name, b, o, d, a_run, any_hit: bool) -> dict:
     new, was = visit_stats(cnt), visit_stats(old_cnt)
     n = o.shape[0]
     a_b = trace_bound(walk_tables(bvh), n, cnt)
-    e_b = trace_bound(threaded_tables(bvh, sc), n, old_cnt)
+    e_b = trace_bound(variant_tables(b.tables, "threaded"), n, old_cnt)
     log(f"[walk] {name}: kernel A {a_run['ms']:.4f} ms ({new['nodes']['mean']:.2f} slab + "
         f"{new['leaves']['mean']:.2f} triangle tests a ray, SIMT efficiency "
         f"{new['simt_efficiency']:.4f}, bound {a_b[0]:.4f} ms {a_b[1]}); E threaded "
@@ -740,6 +842,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vkrt_tpu_torch import device as kdev
+    from vkrt_tpu_torch.ops.cuda.trace_variants import INSTANTIATIONS
     from vkrt_tpu_torch.utils import native
 
     dev = torch.device("cuda")
@@ -764,15 +867,21 @@ def main() -> int:
     log(f"[build] kernel A as compiled: {info['registers']} registers a thread, "
         f"{info['shared_bytes']} B shared memory a block, {info['local_bytes']} B local "
         f"memory (stack frame) a thread, {info['blocks_per_sm']} blocks of 128 threads an SM")
+    for v, vid in INSTANTIATIONS.items():
+        info = kdev.variant_info(vid)
+        log(f"[build] kernel E {v} as compiled: {info['registers']} registers a thread, "
+            f"{info['shared_bytes']} B shared memory a block, {info['local_bytes']} B local "
+            f"memory a thread, {info['blocks_per_sm']} blocks of 128 threads an SM")
     t0 = time.perf_counter()
     native.library()
     log(f"[build] native SAH builder: {time.perf_counter() - t0:.2f} s")
 
-    results = {}
-    for name, phase in (("2-3 kernels", lambda: phase_kernels(dev, results)),
+    results, pools = {}, {}
+    for name, phase in (("2-3 kernels",
+                         lambda: pools.update(shadow=phase_kernels(dev, results))),
                         ("4 main path", lambda: phase_main_path(dev, results)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
-                        ("6 probes", lambda: phase_probes(dev, results))):
+                        ("6 probes", lambda: phase_probes(dev, results, pools["shadow"]))):
         t0 = time.perf_counter()
         phase()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

@@ -10,9 +10,9 @@ exact, triangle ids equal except at equal-t ties (where t agrees), t within
 1e-5 relative and u, v within 1e-5 absolute (XLA's CPU arithmetic
 contracts some products, and t, a dot product with cancellation, moves by
 more than a few ulp); its visit counts equal a numpy walk written here.
-``trace_rays_bvh_ordered`` (kernel A's walk) by the same rule against the
-same JAX references, and bit-equal to the port's brute force, triangle ids
-included. C: the miss record, exact. D and E: their plain
+``trace_rays_bvh_ordered`` (kernel A's walk) and ``trace_rays_bvh_wide``
+(kernel E's ``ordered``) by the same rule against the same JAX references,
+and bit-equal to the port's brute force, triangle ids included. C: the miss record, exact. D and E: their plain
 versions against the JAX plain references by the same rule. F: against
 ``benchmarks/scratch/vpupeak.py``'s kernel run through ``pl.pallas_call(...,
 interpret=True)``: the plain version bit-equal to a fused numpy recurrence,
@@ -56,6 +56,7 @@ from vkrt_tpu_torch.ops.cuda.trace_variants import (
 from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
 from vkrt_tpu_torch.ops.trace import (
     SLAB_SCALE, trace_rays_bruteforce, trace_rays_bvh, trace_rays_bvh_ordered,
+    trace_rays_bvh_wide,
 )
 
 torch.set_num_threads(2)
@@ -366,9 +367,58 @@ def test_trace_rays_bvh_ordered_matches_jax(case):
     assert int(counts.nodes.sum()) <= int(threaded.nodes.sum())
 
 
+def test_trace_rays_bvh_wide_matches_jax(case):
+    """Kernel E's wide walk in plain torch against the JAX package's BVH and
+    brute-force tracers on the same rays (as the binary walk above), and
+    bit-equal to the port's brute force."""
+    ts, bvh, o, d, ref = case
+    wide = probe_tables(bvh, ts).wide
+    lim = torch.full((N_RAYS,), T_MAX)
+    h, counts = trace_rays_bvh_wide(wide, o, d, lim, count=True)
+    assert_hits_match(h, ref["bvh"])
+    assert_hits_match(h, ref["brute"])
+    for a, b in zip(h, trace_rays_bruteforce(ts.tri_v0, ts.tri_e1, ts.tri_e2, o, d, lim)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    h_any = trace_rays_bvh_wide(wide, o, d, torch.full((N_RAYS,), -ANY_BOUND))
+    np.testing.assert_array_equal(h_any.tri.numpy() >= 0, ref["any"])
+    hit = h.tri.numpy() >= 0
+    assert int(counts.records.min()) >= 1
+    assert (counts.nodes >= 2 * counts.records).all()
+    assert (counts.nodes <= 4 * counts.records).all()
+    assert (counts.leaves.numpy()[hit] >= 1).all()
+    _, threaded = trace_rays_bvh(bvh.threaded, ts, o, d, lim, count=True)
+    assert int(counts.leaves.sum()) <= int(threaded.leaves.sum())
+
+
+@pytest.mark.parametrize("kind", ["box", "city"])
+def test_probe_tables_of_kernel_e(kind):
+    """The tables only kernel E reads: the threaded table with leaf slots
+    (``bvh.tris[slot]`` is the leaf's triangle), the cut's rows of it with
+    ~(first child) at inner nodes, the triangle records in scene order."""
+    _, ts = _scene(kind)
+    bvh = build_bvh(ts)
+    tables = probe_tables(bvh, ts)
+    old, new = bvh.threaded.numpy(), tables.threaded.numpy()
+    np.testing.assert_array_equal(new[:, :7], old[:, :7])
+    tri, slot = old.view(np.int32)[:, 7], new.view(np.int32)[:, 7]
+    leaf = tri >= 0
+    assert (slot[~leaf] == -1).all()
+    np.testing.assert_array_equal(bvh.tris.numpy().view(np.int32)[slot[leaf], 3], tri[leaf])
+    cut, boxes = tables.cut.numpy(), tables.cut_boxes.numpy()
+    np.testing.assert_array_equal(boxes[:, :7], new[cut, :7])
+    np.testing.assert_array_equal(boxes.view(np.int32)[:, 7],
+                                  np.where(leaf[cut], slot[cut], ~(cut + 1)))
+    rec = tables.scene_tris.numpy()
+    n = ts.tri_v0.shape[0]
+    np.testing.assert_array_equal(rec.view(np.int32)[:, 3], np.arange(n))
+    for col, t in ((0, ts.tri_v0), (4, ts.tri_e1), (8, ts.tri_e2)):
+        np.testing.assert_array_equal(rec[:, col:col + 3], t.numpy())
+    assert tables.wide.tris is bvh.tris and tables.wide.nodes.shape[1] == 32
+
+
 def test_node_depths_and_cut():
     _, ts = _scene("city")
-    tables = probe_tables(build_bvh(ts), ts.num_tris)
+    tables = probe_tables(build_bvh(ts), ts)
     bits = tables.bvh.threaded.numpy().view(np.int32)
     skip, tri = bits[:, 3], bits[:, 7]
     depth = tables.depth.numpy()
@@ -406,7 +456,7 @@ def test_floor_plain_is_the_miss_record():
 @pytest.mark.parametrize("mode", ["full", "boxes", "top", "count"])
 def test_trace_ablate_plain(case, mode):
     ts, bvh, o, d, ref = case
-    tables = probe_tables(bvh, ts.num_tris)
+    tables = probe_tables(bvh, ts)
     lim = torch.full((N_RAYS,), T_MAX)
     hits, counts = trace_ablate(mode, tables, ts, o, d, lim)
     if mode in ("boxes", "top"):
@@ -421,17 +471,17 @@ def test_trace_ablate_plain(case, mode):
         assert torch.equal(counts.nodes, want.nodes) and torch.equal(counts.leaves, want.leaves)
 
 
-@pytest.mark.parametrize("variant", ["threaded", "ordered", "flat", "mt64"])
+@pytest.mark.parametrize("variant", ["threaded", "binary", "ordered", "flat", "mt64"])
 def test_trace_variant_plain(case, variant):
     ts, bvh, o, d, ref = case
-    tables = probe_tables(bvh, ts.num_tris)
+    tables = probe_tables(bvh, ts)
     hits = trace_variant(variant, tables, ts, o, d, torch.full((N_RAYS,), T_MAX))
     assert_hits_match(hits, ref["mt64" if variant == "mt64" else "brute"])
 
 
 def test_probe_names_refused():
     _, ts = _scene("box")
-    tables = probe_tables(build_bvh(ts), ts.num_tris)
+    tables = probe_tables(build_bvh(ts), ts)
     o, d = _rays(ts, n=8)
     lim = torch.full((8,), T_MAX)
     for bad in ("dyn4", "bit4", "mt0", "mt", "plain", "mt999"):
@@ -496,7 +546,7 @@ def test_fma_peak_plain_matches_vpupeak(monkeypatch, k):
 @pytest.mark.parametrize("entry,argv", [
     ("micro_trace", ["--width", "64", "--height", "16", "--iters", "1"]),
     ("ablate_kernel", ["cornell", "--width", "64", "--height", "16", "--iters", "1"]),
-    ("variants", ["cornell", "threaded", "ordered", "flat", "mt64",
+    ("variants", ["cornell", "threaded", "binary", "ordered", "flat", "mt64",
                   "--width", "64", "--height", "16", "--iters", "1", "--incoherent"]),
     ("vpupeak", ["128", "2", "1"]),
 ])

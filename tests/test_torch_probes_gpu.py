@@ -5,9 +5,11 @@ skips without a CUDA device (decided in the fixture, not at import).
 Run on the card: ``python -m pytest --noconftest tests/test_torch_probes_gpu.py -q``.
 Tolerances: C, D's ``full``/``boxes``/``top``/``count`` and F at K = 512 are
 bit-equal to what they are held to (the miss record, kernel A, the plain
-front-to-back walk's visit counts, the f64-per-step recurrence); E's variants agree with
-kernel A on every verdict, and on the triangle except at equal-t ties, with
-t, u and v within 1e-6 relative where both hit one triangle."""
+front-to-back walk's visit counts, the f64-per-step recurrence); E's
+variants are bit-equal to kernel A (``mt<K>`` to brute force over its K
+triangles) in t, u, v and triangle id on closest lanes and equal in the
+verdict on first-hit-kills lanes, and ``ordered``'s counts are the plain
+wide walk's."""
 
 import numpy as np
 import pytest
@@ -30,7 +32,7 @@ def city(cuda):
     from vkrt_tpu_torch.scene import make_city
 
     scene = make_city(grid=8, device=cuda)
-    return scene, probe_tables(build_bvh(scene), scene.num_tris)
+    return scene, probe_tables(build_bvh(scene), scene)
 
 
 def _rays(n, seed, scene, device, strided=False):
@@ -94,30 +96,64 @@ def test_ablate_modes(cuda, city, any_hit):
         assert all(torch.equal(x, y) for x, y in zip(hits, miss_record(lim)))
 
 
-@pytest.mark.parametrize("variant", ["threaded", "ordered", "flat", "mt64"])
-def test_variants_match_kernel_a(cuda, city, variant):
+@pytest.fixture(scope="module")
+def soup(cuda):
+    from vkrt_tpu_torch.ops.cuda.trace import build_bvh
+    from vkrt_tpu_torch.ops.cuda.trace_variants import probe_tables
+    from vkrt_tpu_torch.scene import make_random_soup
+
+    scene = make_random_soup(4096, device=cuda)
+    return scene, probe_tables(build_bvh(scene), scene)
+
+
+# mt200: K is no multiple of the 128-record tile; 10,007 rays: no multiple of
+# the 128-thread block
+@pytest.mark.parametrize("variant", ["threaded", "binary", "ordered", "flat", "mt64", "mt200"])
+@pytest.mark.parametrize("which", ["city", "soup"])
+def test_variants_match_kernel_a(cuda, city, soup, which, variant):
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
     from vkrt_tpu_torch.ops.cuda.trace_variants import trace_variant
     from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce
 
-    scene, tables = city
-    o, d, lim = _rays(1 << 14, 4, scene, cuda)
-    if variant == "mt64":
-        ref = trace_rays_bruteforce(scene.tri_v0[:64], scene.tri_e1[:64], scene.tri_e2[:64],
+    scene, tables = city if which == "city" else soup
+    o, d, lim = _rays(10007, 4, scene, cuda, strided=which == "soup")
+    lim[::5] = -3.0   # first-hit-kills lanes: the verdict
+    lim[1::5] = 0.75  # short closest lanes
+    d[2::50, 0] = 0.0  # zero direction components
+    if variant.startswith("mt"):
+        k = int(variant[2:])
+        ref = trace_rays_bruteforce(scene.tri_v0[:k], scene.tri_e1[:k], scene.tri_e2[:k],
                                     o, d, lim)
     else:
         ref = trace_kernel(tables.bvh, scene, o, d, lim)
     before = trace_variant.launches
     k = trace_variant(variant, tables, scene, o, d, lim)
     assert trace_variant.launches == before + 1
-    kt, ktri, ku, kv = (x.cpu().numpy() for x in k)
-    rt, rtri, ru, rv = (x.cpu().numpy() for x in ref)
-    np.testing.assert_array_equal(ktri >= 0, rtri >= 0)
-    np.testing.assert_allclose(kt, rt, rtol=1e-6)
-    same = ktri == rtri
-    assert (np.abs(kt - rt)[~same] <= 1e-6 * np.abs(rt)[~same]).all()  # ties only
-    np.testing.assert_allclose(ku[same], ru[same], rtol=1e-6, atol=0)
-    np.testing.assert_allclose(kv[same], rv[same], rtol=1e-6, atol=0)
+    assert torch.equal(k.tri >= 0, ref.tri >= 0)
+    assert 0.05 < (k.tri >= 0).float().mean() < 0.999 or variant.startswith("mt")
+    closest = lim >= 0
+    for x, y in zip(k, ref):
+        assert torch.equal(x[closest], y[closest])
+
+
+@pytest.mark.parametrize("which", ["city", "soup"])
+def test_ordered_counts_match_plain_wide_walk(cuda, city, soup, which):
+    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+    from vkrt_tpu_torch.ops.cuda.trace_variants import trace_variant
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_wide
+
+    scene, tables = city if which == "city" else soup
+    o, d, lim = _rays(5001, 6, scene, cuda)
+    lim[::4] = -2.0
+    hits, counts = trace_variant("ordered", tables, scene, o, d, lim, count=True)
+    walk, plain = trace_rays_bvh_wide(tables.wide, o, d, lim, count=True)
+    assert all(torch.equal(x, y) for x, y in zip(counts, plain))  # slabs, leaves, records
+    assert (counts.nodes < 4 * counts.records).any()  # empty slots are not counted
+    assert all(torch.equal(x, y) for x, y in zip(hits, walk))
+    assert all(torch.equal(x, y)
+               for x, y in zip(hits, trace_variant("ordered", tables, scene, o, d, lim)))
+    a = trace_kernel(tables.bvh, scene, o, d, lim)
+    assert torch.equal(hits.tri >= 0, a.tri >= 0)
 
 
 def test_probe_wrappers_refuse_bad_inputs(cuda, city):
@@ -136,8 +172,13 @@ def test_probe_wrappers_refuse_bad_inputs(cuda, city):
         trace_ablate("votes", tables, scene, o, d, lim)
     with pytest.raises(ValueError):
         trace_variant("dyn4", tables, scene, o, d, lim)
-    with pytest.raises(ValueError):  # deeper than the ordered walk's stack
-        trace_variant("ordered", dataclasses.replace(tables, max_depth=65), scene, o, d, lim)
+    with pytest.raises(ValueError):  # deeper than the binary walk's stack
+        trace_variant("binary", dataclasses.replace(tables, max_depth=65), scene, o, d, lim)
+    with pytest.raises(ValueError):  # more entries than the wide walk's stack
+        trace_variant("ordered", dataclasses.replace(tables, wide=tables.wide._replace(stack=65)),
+                      scene, o, d, lim)
+    with pytest.raises(ValueError):  # only ordered counts
+        trace_variant("binary", tables, scene, o, d, lim, count=True)
     with pytest.raises(ValueError):
         trace_variant("threaded", tables, scene, o, d, lim.cpu())
     deep = dataclasses.replace(tables, bvh=tables.bvh._replace(depth=33))

@@ -51,7 +51,7 @@ def build(name: str, device="cuda") -> BuiltScene:
     t1 = time.perf_counter()
     bvh = build_bvh(scene)
     t2 = time.perf_counter()
-    tables = probe_tables(bvh, scene.num_tris)
+    tables = probe_tables(bvh, scene)
     t3 = time.perf_counter()
     tracer = CudaTracer(scene=scene, bvh=bvh) if device.type == "cuda" else Tracer(scene)
     return BuiltScene(name, scene, tables, tracer,
@@ -63,7 +63,9 @@ def describe(b: BuiltScene) -> str:
     return (f"scene {b.name}: {b.scene.num_tris} tris (padded), "
             f"{b.tables.bvh.threaded.shape[0]} BVH nodes ({b.tables.bvh.nodes.shape[0]} "
             f"child-box records), depth {b.tables.max_depth}, "
-            f"cut depth {b.tables.cut_depth} ({b.tables.cut.shape[0]} cut nodes); "
+            f"cut depth {b.tables.cut_depth} ({b.tables.cut.shape[0]} cut nodes), "
+            f"{b.tables.wide.nodes.shape[0]} four-child records (depth "
+            f"{b.tables.wide.depth}, stack {b.tables.wide.stack}); "
             f"host build {s['scene']:.3f} s scene + {s['bvh']:.3f} s BVH + "
             f"{s['tables']:.3f} s tables on {b.scene.device}")
 

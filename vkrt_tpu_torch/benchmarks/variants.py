@@ -1,14 +1,18 @@
 """Traversal-structure variants of kernel A (port of
 ``benchmarks/scratch/variants.py``), on the same tree and the same rays.
 
-Kernel E's variants, the alternatives to kernel A's design: ``threaded``
-(the stackless skip-link walk, kernel A's first design; the TPU's "plain"),
-``ordered`` (nearer child first over the same table, the stack in local
-memory and two dependent rounds of loads a level), ``flat`` (a scan over
-the cut's boxes, then a walk inside each hit subtree) and ``mt<K>`` (the
-first K triangles, no boxes: the triangle pipeline's rate). The TPU
-script's ``flatcount``, ``scan_only`` and ``votes_only`` are kernel D's
-``count``, ``top`` and ``boxes`` (``ablate_kernel``); its ``dynK`` and
+Kernel E's variants, the alternatives to kernel A's design: ``ordered``
+(the wide front-to-back walk: records of up to four children in one
+128-byte line, the hit children sorted by entry distance; the counterpart
+of the TPU's 16 boxes a visit), ``binary`` (nearer child first over the
+threaded table, two dependent rounds of loads a level), ``threaded`` (the
+stackless skip-link walk, kernel A's first design; the TPU's "plain"),
+``flat`` (a scan over the cut's boxes out of shared memory, then a
+stackless walk inside each hit subtree) and ``mt<K>`` (the first K scene
+triangles out of shared memory, no boxes: the triangle pipeline's rate).
+All read kernel A's triangle records and decide ties as kernel A does. The
+TPU script's ``flatcount``, ``scan_only`` and ``votes_only`` are kernel
+D's ``count``, ``top`` and ``boxes`` (``ablate_kernel``); its ``dynK`` and
 ``bitK`` measured Mosaic's loop cost and have no counterpart on the card.
 
 Rays: the 1280x720 primaries in 32x32-tile order, as ``variants.py`` takes
@@ -31,7 +35,7 @@ from vkrt_tpu_torch.device import select
 from vkrt_tpu_torch.ops.cuda.trace_variants import parse_variant, trace_variant
 from vkrt_tpu_torch.ops.intersect import T_MAX
 
-DEFAULT_VARIANTS = ("flat", "threaded", "ordered")
+DEFAULT_VARIANTS = ("flat", "threaded", "binary", "ordered")
 
 
 def run_variants(b, o, d, names, iters: int) -> dict:

@@ -1,6 +1,8 @@
 // The ray-BVH walk shared by kernel A (trace.cu) and kernel D
 // (trace_variants.cu), so the two cannot drift: the slab test, the
 // Moller-Trumbore test and the front-to-back walk over child-box records.
+// Kernel E's variants (trace_variants.cu) take their slab test, triangle
+// test, tie rule and pop from here too.
 //
 // Tables (built on the host, vkrt_tpu_torch/ops/cuda/trace.py):
 //   nodes: one 64-byte record per inner node, four float4
@@ -147,16 +149,14 @@ __device__ __forceinline__ bool mt_test(const float4 a, const float4 e1,
   return u >= 0.f && v >= 0.f && __fadd_rn(u, v) <= 1.f && t > t_min;
 }
 
-// The triangle record `slot` against the closest hit so far. A hit at an
-// equal t goes to the lower scene triangle id, as the plain version's
-// argmin gives it, so the winner does not depend on the order of the walk
-// (b.tri is -1 while b.t is the ray's limit, so a hit at the limit itself
-// is never taken).
-__device__ __forceinline__ bool mt_record(const float4* __restrict__ tris,
-                                          int slot, const Ray& r, float t_min,
-                                          Best& b) {
-  const float4* rec = tris + 3 * (int64_t)slot;
-  const float4 a = __ldg(rec), e1 = __ldg(rec + 1), e2 = __ldg(rec + 2);
+// A loaded triangle record (a, e1, e2) against the closest hit so far. A
+// hit at an equal t goes to the lower scene triangle id, as the plain
+// version's argmin gives it, so the winner does not depend on the order of
+// the walk (b.tri is -1 while b.t is the ray's limit, so a hit at the limit
+// itself is never taken).
+__device__ __forceinline__ bool mt_update(const float4 a, const float4 e1,
+                                          const float4 e2, const Ray& r,
+                                          float t_min, Best& b) {
   float t, u, v;
   if (!mt_test(a, e1, e2, r, t_min, t, u, v)) return false;
   const int tri = __float_as_int(a.w);
@@ -165,6 +165,15 @@ __device__ __forceinline__ bool mt_record(const float4* __restrict__ tris,
     return true;
   }
   return false;
+}
+
+// The triangle record `slot` of the table against the closest hit so far.
+__device__ __forceinline__ bool mt_record(const float4* __restrict__ tris,
+                                          int slot, const Ray& r, float t_min,
+                                          Best& b) {
+  const float4* rec = tris + 3 * (int64_t)slot;
+  const float4 a = __ldg(rec), e1 = __ldg(rec + 1), e2 = __ldg(rec + 2);
+  return mt_update(a, e1, e2, r, t_min, b);
 }
 
 // The newest stack entry whose entry distance is still within best (the

@@ -85,15 +85,20 @@ _SIGNATURES = {
         _P,                  # stream
     ],
     "vkrt_trace_variant": [
-        _I, _I,              # variant, tree depth (ordered refuses > 64)
-        _P, _I,              # threaded nodes (M, 8), n_nodes
-        _P, _I, _I,          # cut node ids, n_cut, k_tris
-        _P, _P, _P,          # tri v0, e1, e2 (T, 3)
+        _I, _I, _I,          # variant, threaded tree depth, wide walk's stack need
+        _P, _I,              # threaded nodes with leaf slots (M, 8), n_nodes
+        _P, _I,              # wide records (W, 32), n_wide
+        _P, _I,              # cut boxes (C, 8), n_cut
+        _P, _P, _I,          # tri records in leaf order, in scene order, k_tris
         _P, _L, _L,          # o, stride lane, stride component
         _P, _L, _L,          # d, stride lane, stride component
         _P, _I, _F,          # t_lim, n, t_min
         _P, _P, _P, _P,      # out t, tri, u, v
+        _P,                  # counts (2, N) or null (ordered only)
         _P,                  # stream
+    ],
+    "vkrt_trace_variant_info": [  # variant; out: registers, shared, local, blocks per SM
+        _I, ctypes.POINTER(_I),
     ],
 }
 
@@ -194,6 +199,15 @@ def trace_info() -> dict:
     check("vkrt_trace_info", kernels().vkrt_trace_info(*map(ctypes.byref, out)))
     return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm"),
                     (v.value for v in out)))
+
+
+def variant_info(variant: int) -> dict:
+    """``trace_info`` of one instantiation of kernel E
+    (``vkrt_trace_variant_info``; the ids are
+    ``ops/cuda/trace_variants.py::INSTANTIATIONS``)."""
+    out = (_I * 4)()
+    check("vkrt_trace_variant_info", kernels().vkrt_trace_variant_info(variant, out))
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm"), out))
 
 
 def check(name: str, err: int) -> None:

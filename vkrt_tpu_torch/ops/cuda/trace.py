@@ -98,6 +98,81 @@ def pack_bvh2_nodes(node_min, node_max, node_skip, node_tri):
     return rec, leaf_tri, int(rec_depth.max()) + 1
 
 
+def pack_bvh4_nodes(node_min, node_max, node_skip, node_tri):
+    """The threaded tree collapsed into records of up to four children ->
+    (records, stack, depth), the table of kernel E's ``ordered``.
+
+    A record starts from a binary inner node's two children; while it has
+    fewer than four and one of them is an inner node, the inner child with
+    the largest surface area gives way to its own two children. ``records``:
+    (W, 32) f32, one 128-byte row per record, eight float4 with the
+    children as columns: [min.x x4] [min.y x4] [min.z x4] [max.x x4]
+    [max.y x4] [max.z x4] [ref x4] [child count | depth | 0 | 0], integers
+    as i32 bits. A reference > 0 is a row of ``records``, < 0 the triangle
+    record ``~ref`` in leaf (preorder) order, which is ``pack_bvh2_nodes``'
+    ``leaf_tri`` order; 0 is an empty slot (row 0 is the root, nobody's
+    child), whose box is min +inf, max -inf. The walk must skip an empty
+    slot by its reference: the slab test takes the smaller and the larger
+    of each axis' two distances, so that inverted box reads as all of
+    space. Rows are in breadth-first order, so the first rows are the top
+    of the tree. ``stack``: the most entries a front-to-back walk can hold
+    (a record pushes up to its child count - 1 before it descends);
+    ``depth``: the records on the longest path from the root.
+
+    A root that is a leaf (a one-triangle scene) is one record with that
+    leaf as its only child."""
+    skip = np.asarray(node_skip, np.int64)
+    tri = np.asarray(node_tri, np.int32)
+    lo, hi = np.asarray(node_min, np.float32), np.asarray(node_max, np.float32)
+    is_leaf = tri >= 0
+    slot = np.cumsum(is_leaf) - 1
+    ext = hi.astype(np.float64) - lo
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    levels = []  # (children as threaded nodes (F, 4), -1 where empty; counts (F,))
+    if is_leaf[0]:
+        levels.append((np.array([[0, -1, -1, -1]]), np.ones(1, np.int64)))
+        frontier = np.zeros(0, np.int64)
+    else:
+        frontier = np.zeros(1, np.int64)
+    while frontier.size:
+        rows = np.arange(len(frontier))
+        kids = np.full((len(frontier), 4), -1, np.int64)
+        kids[:, 0], kids[:, 1] = frontier + 1, skip[frontier + 1]
+        cnt = np.full(len(frontier), 2, np.int64)
+        for _ in range(2):
+            a = np.where((kids >= 0) & ~is_leaf[kids], area[kids], -1.0)
+            j = a.argmax(1)
+            grow = a[rows, j] >= 0.0
+            parent = kids[grow, j[grow]]
+            kids[grow, j[grow]] = parent + 1
+            kids[grow, cnt[grow]] = skip[parent + 1]
+            cnt[grow] += 1
+        levels.append((kids, cnt))
+        frontier = kids[(kids >= 0) & ~is_leaf[kids]]
+    n_rec = sum(len(k) for k, _ in levels)
+    rec = np.zeros((n_rec, 32), np.float32)
+    bits = rec.view(np.int32)
+    need = np.zeros(n_rec + 1, np.int64)  # stack entries below a record; [n_rec]: a leaf
+    base, spans = 0, []
+    for level, (kids, cnt) in enumerate(levels):
+        f = len(kids)
+        inner = (kids >= 0) & ~is_leaf[kids]
+        ref = np.where(kids >= 0, ~slot[kids], 0)
+        ref[inner] = base + f + np.arange(int(inner.sum()))
+        empty = (kids < 0)[:, None, :]
+        rec[base:base + f, 0:12] = np.where(empty, np.inf, lo[kids].transpose(0, 2, 1)
+                                            ).reshape(f, 12)
+        rec[base:base + f, 12:24] = np.where(empty, -np.inf, hi[kids].transpose(0, 2, 1)
+                                             ).reshape(f, 12)
+        bits[base:base + f, 24:28] = ref
+        bits[base:base + f, 28], bits[base:base + f, 29] = cnt, level
+        spans.append((base, np.where(inner, ref, n_rec), cnt))
+        base += f
+    for start, child, cnt in reversed(spans):
+        need[start:start + len(child)] = cnt - 1 + need[child].max(1)
+    return rec, int(need[0]), len(levels)
+
+
 def pack_tris(v0, e1, e2, leaf_tri) -> np.ndarray:
     """(L, 12) f32 triangle records in leaf order, three float4:
     [v0.xyz | scene triangle id (i32 bits)], [e1.xyz | 0], [e2.xyz | 0]."""
@@ -158,16 +233,6 @@ def check_rays(name: str, o, d, t_lim, tables=()) -> int:
     if not all(t.is_contiguous() for t in tables):
         raise ValueError(f"{name}: scene tables must be contiguous")
     return n
-
-
-def check_scene(nodes: torch.Tensor, scene: SceneTensors):
-    """The threaded node table and the scene's triangle tables, which
-    kernel E's variants read."""
-    n_tris = scene.tri_v0.shape[0]
-    _check_f32("nodes", nodes, (nodes.shape[0], 8))
-    for name in ("tri_v0", "tri_e1", "tri_e2"):
-        _check_f32(name, getattr(scene, name), (n_tris, 3))
-    return (nodes, scene.tri_v0, scene.tri_e1, scene.tri_e2)
 
 
 def check_bvh(bvh: Bvh):

@@ -10,24 +10,32 @@ structures (``csrc/trace_variants.cu``).
   versions: brute force for ``full``, the miss record for ``boxes`` and
   ``top``, ``trace_rays_bvh_ordered(count=True)`` for ``count``.
 * ``trace_variant(variant, ...)`` replaces
-  ``benchmarks/scratch/variants.py::make_kernel``. Variants ``threaded``
-  (the TPU's "plain": the stackless skip-link walk), ``ordered`` (nearer
-  child first, a stack in local memory), ``flat`` and ``mt<K>``, all over
-  the threaded table and the scene's triangle tables: the alternatives to
-  kernel A's design. Every one computes the closest hit, so brute force
-  (over the first K triangles for ``mt<K>``) is the plain version of all
-  of them.
+  ``benchmarks/scratch/variants.py::make_kernel``, the alternatives to
+  kernel A's design: ``ordered`` (the wide front-to-back walk over records
+  of up to four children, the counterpart of the TPU's 16 boxes a visit;
+  plain version ``trace_rays_bvh_wide``, whose counts ``count=True``
+  returns), ``binary`` (nearer child first over the threaded table, a stack
+  in local memory), ``threaded`` (the TPU's "plain": the stackless
+  skip-link walk), ``flat`` (a scan over the cut's boxes out of shared
+  memory, then the stackless walk) and ``mt<K>`` (the first K scene
+  triangles out of shared memory, no boxes). Every one reads triangles as
+  kernel A's records and decides equal-t ties as kernel A does, so each is
+  bit-equal to brute force (over the first K triangles for ``mt<K>``),
+  the plain version of all but ``ordered``, whose own is bit-equal to it.
 
 The TPU variants ``dynK`` and ``bitK`` measured the cost of Mosaic's loop
 iterations and have no counterpart here.
 
 ``ProbeTables`` holds what the host derives from the threaded table: each
-node's depth (from the skip links), the tree's depth (``ordered``'s stack
-holds one entry per level, ``ORDERED_STACK`` in all) and
-the cut (``top`` and ``flat``): the nodes at ``cut_depth`` and the
-shallower leaves, where ``cut_depth`` puts about ``CUT_TRIS`` triangles
-under a cut node, as the TPU tree put 16 clusters of 64 under a super
-node.
+node's depth (from the skip links), the tree's depth (``binary``'s stack
+holds one entry per level, ``BINARY_STACK`` in all), the cut (``top`` and
+``flat``): the nodes at ``cut_depth`` and the shallower leaves, where
+``cut_depth`` puts about ``CUT_TRIS`` triangles under a cut node, as the
+TPU tree put 16 clusters of 64 under a super node; and the tables only
+kernel E reads: the wide records (``pack_bvh4_nodes``), the threaded
+table with each leaf's slot in ``Bvh.tris``, the cut nodes' rows of it,
+and the triangle records in scene order. ``build_bvh`` makes none of
+them, so the main path does not pay for them.
 """
 
 from __future__ import annotations
@@ -40,26 +48,36 @@ import torch
 
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.ops.cuda.probes import miss_record
-from vkrt_tpu_torch.ops.cuda.trace import check_bvh, check_rays, check_scene, node_depths
+from vkrt_tpu_torch.ops.cuda.trace import (
+    check_bvh, check_rays, node_depths, pack_bvh4_nodes, pack_tris,
+)
 from vkrt_tpu_torch.ops.intersect import T_MIN
 from vkrt_tpu_torch.ops.trace import (
-    Bvh, BvhCounts, RayHits, trace_rays_bruteforce, trace_rays_bvh_ordered,
+    WIDE_STACK, Bvh, BvhCounts, RayHits, WideBvh, WideCounts, trace_rays_bruteforce,
+    trace_rays_bvh_ordered, trace_rays_bvh_wide,
 )
 from vkrt_tpu_torch.scene import SceneTensors
 
 ABLATE_MODES = {"full": 0, "boxes": 1, "top": 2, "count": 3}
-VARIANTS = {"threaded": 0, "ordered": 1, "flat": 2, "mt": 3}
-ORDERED_STACK = 64  # variant ordered's stack entries (csrc/trace_variants.cu)
+VARIANTS = {"threaded": 0, "ordered": 1, "flat": 2, "mt": 3, "binary": 4}
+# every instantiation of the kernel (csrc/trace_variants.cu's enum Variant),
+# as ``device.variant_info`` takes them
+INSTANTIATIONS = {**VARIANTS, "ordered with counts": 5}
+BINARY_STACK = 64  # variant binary's stack entries (csrc/trace_variants.cu)
 CUT_TRIS = 1024
 
 
 @dataclasses.dataclass(frozen=True)
 class ProbeTables:
-    bvh: Bvh             # kernel A's tables, and the threaded table E walks
-    depth: torch.Tensor  # (M,) int32 node depth, root 0
-    cut: torch.Tensor    # (C,) int32 cut node ids, preorder
+    bvh: Bvh                  # kernel A's tables, and the threaded table
+    depth: torch.Tensor       # (M,) int32 node depth, root 0
+    cut: torch.Tensor         # (C,) int32 cut node ids, preorder
     cut_depth: int
     max_depth: int
+    wide: WideBvh             # ordered's records (pack_bvh4_nodes) over bvh.tris
+    threaded: torch.Tensor    # (M, 8) bvh.threaded with leaf slots for triangle ids
+    cut_boxes: torch.Tensor   # (C, 8) the cut's rows of threaded; inner: ~first child
+    scene_tris: torch.Tensor  # (T, 12) triangle records in scene order (mt<K>)
 
 
 def cut_depth_for(n_tris: int) -> int:
@@ -67,21 +85,33 @@ def cut_depth_for(n_tris: int) -> int:
     return max(1, round(math.log2(max(n_tris, 1) / CUT_TRIS)))
 
 
-def probe_tables(bvh: Bvh, n_tris: int) -> ProbeTables:
-    """The host tables of kernels D and E for the BVH of a scene with
-    ``n_tris`` triangles."""
-    nodes = bvh.threaded
-    bits = nodes.detach().cpu().numpy().view(np.int32)
+def probe_tables(bvh: Bvh, scene: SceneTensors) -> ProbeTables:
+    """The host tables of kernels D and E for ``scene`` and its BVH."""
+    nodes = bvh.threaded.detach().cpu().numpy()
+    bits = nodes.view(np.int32)
     skip, tri = bits[:, 3].astype(np.int64), bits[:, 7]
     depth = node_depths(skip, tri)
-    cut_depth = cut_depth_for(n_tris)
+    cut_depth = cut_depth_for(scene.num_tris)
     cut = np.nonzero((depth == cut_depth) | ((depth < cut_depth) & (tri >= 0)))[0]
+    records, stack, wide_depth = pack_bvh4_nodes(nodes[:, 0:3], nodes[:, 4:7], skip, tri)
+    # the leaf's place in bvh.tris (leaf order) where the table has its triangle
+    slot = np.where(tri >= 0, np.cumsum(tri >= 0) - 1, -1)
+    slots = nodes.copy()
+    slots.view(np.int32)[:, 7] = slot
+    cut_boxes = slots[cut]
+    cut_boxes.view(np.int32)[:, 7] = np.where(tri[cut] >= 0, slot[cut], ~(cut + 1))
+    v0, e1, e2 = (np.asarray(t.detach().cpu(), np.float32)
+                  for t in (scene.tri_v0, scene.tri_e1, scene.tri_e2))
+
+    def put(a):
+        return torch.as_tensor(a, device=bvh.threaded.device)
+
     return ProbeTables(
-        bvh=bvh,
-        depth=torch.as_tensor(depth, device=nodes.device),
-        cut=torch.as_tensor(cut.astype(np.int32), device=nodes.device),
-        cut_depth=cut_depth,
+        bvh=bvh, depth=put(depth), cut=put(cut.astype(np.int32)), cut_depth=cut_depth,
         max_depth=int(depth.max()),
+        wide=WideBvh(put(records), bvh.tris, stack, wide_depth),
+        threaded=put(slots), cut_boxes=put(cut_boxes),
+        scene_tris=put(pack_tris(v0, e1, e2, np.arange(len(v0)))),
     )
 
 
@@ -130,47 +160,64 @@ trace_ablate.launches = 0
 
 
 def parse_variant(name: str):
-    """'threaded' | 'ordered' | 'flat' | 'mt<K>' -> (variant, K)."""
+    """'ordered' | 'binary' | 'threaded' | 'flat' | 'mt<K>' -> (variant, K)."""
     if name.startswith("mt") and name[2:].isdigit() and int(name[2:]) > 0:
         return "mt", int(name[2:])
     if name in VARIANTS and name != "mt":
         return name, 0
-    raise ValueError(f"unknown variant {name!r} (threaded, ordered, flat or mt<K>)")
+    raise ValueError(f"unknown variant {name!r} (ordered, binary, threaded, flat or mt<K>)")
 
 
 def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
-                  t_lim, t_min: float = T_MIN) -> RayHits:
+                  t_lim, t_min: float = T_MIN, count: bool = False):
     """Kernel E: the closest hit (bound |t_lim|) by traversal ``name``.
-    ``threaded`` ends a first-hit-kills lane (t_lim < 0) at its first hit;
-    such a lane promises only its verdict, which is the plain version's."""
+    ``ordered`` and ``threaded`` end a first-hit-kills lane (t_lim < 0) at
+    its first hit; such a lane promises only its verdict, which is the
+    plain version's. ``count`` (``ordered`` only) also returns the walk's
+    slab tests (one a child a record holds), triangle tests and records a
+    ray: ``(RayHits, WideCounts)``."""
     variant, k = parse_variant(name)
     if variant == "mt" and k > scene.tri_v0.shape[0]:
         raise ValueError(f"{name}: the scene has {scene.tri_v0.shape[0]} triangles")
+    if count and variant != "ordered":
+        raise ValueError(f"{name}: only ordered counts its tests")
+    wide = tables.wide
+    if variant == "ordered" and wide.stack > WIDE_STACK:
+        raise ValueError(f"ordered: the wide tree needs {wide.stack} stack entries, "
+                         f"the walk holds {WIDE_STACK}")
+    if variant == "binary" and tables.max_depth > BINARY_STACK:
+        raise ValueError(f"binary: tree depth {tables.max_depth} exceeds the "
+                         f"{BINARY_STACK}-entry stack")
     if o.device.type == "cpu":
+        if variant == "ordered":
+            return trace_rays_bvh_wide(wide, o, d, t_lim, t_min, count=count)
         tris = slice(0, k) if variant == "mt" else slice(None)
         return trace_rays_bruteforce(scene.tri_v0[tris], scene.tri_e1[tris],
                                      scene.tri_e2[tris], o, d, t_lim, t_min)
-    if variant == "ordered" and tables.max_depth > ORDERED_STACK:
-        raise ValueError(f"ordered: tree depth {tables.max_depth} exceeds the "
-                         f"{ORDERED_STACK}-entry stack")
-    nodes = tables.bvh.threaded
-    tabs = check_scene(nodes, scene) + (tables.cut,)
+    tabs = (tables.threaded, wide.nodes, tables.cut_boxes, wide.tris, tables.scene_tris)
+    for what, t, width in zip(("threaded", "wide", "cut_boxes", "tris", "scene_tris"),
+                              tabs, (8, 32, 8, 12, 12)):
+        if t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] != width or t.shape[0] < 1:
+            raise ValueError(f"{what}: want f32 (n >= 1, {width}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
     n = check_rays("trace_variant", o, d, t_lim, tabs)
     t, tri, u, v = _hit_buffers(n, o.device)
+    counts = torch.empty((3, n), dtype=torch.int32, device=o.device) if count else None
     err = dev.kernels().vkrt_trace_variant(
-        VARIANTS[variant], tables.max_depth,
-        nodes.data_ptr(), nodes.shape[0],
-        tables.cut.data_ptr(), tables.cut.shape[0], k,
-        scene.tri_v0.data_ptr(), scene.tri_e1.data_ptr(), scene.tri_e2.data_ptr(),
+        VARIANTS[variant], tables.max_depth, wide.stack,
+        tabs[0].data_ptr(), tabs[0].shape[0], tabs[1].data_ptr(), tabs[1].shape[0],
+        tabs[2].data_ptr(), tabs[2].shape[0], tabs[3].data_ptr(), tabs[4].data_ptr(), k,
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min),
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        None if counts is None else counts.data_ptr(),
         dev.stream_ptr(o.device),
     )
     dev.check("vkrt_trace_variant", err)
     trace_variant.launches += 1
-    return RayHits(t, tri, u, v)
+    hits = RayHits(t, tri, u, v)
+    return (hits, WideCounts(*counts)) if count else hits
 
 
 trace_variant.launches = 0

@@ -148,6 +148,14 @@ class BvhCounts(NamedTuple):
     leaves: torch.Tensor  # (N,) int32 Moller-Trumbore tests
 
 
+class WideCounts(NamedTuple):
+    """Per-ray work of the wide walk: ``BvhCounts`` and its steps."""
+
+    nodes: torch.Tensor    # (N,) int32 slab tests: the children of the records read
+    leaves: torch.Tensor   # (N,) int32 Moller-Trumbore tests
+    records: torch.Tensor  # (N,) int32 records read
+
+
 def unpack_nodes(nodes: torch.Tensor):
     """The (M, 8) node table -> (lo (M,3), hi (M,3), skip (M,) i64,
     tri (M,) i64) with tri = -1 at inner nodes."""
@@ -224,31 +232,44 @@ def _slab(lo, hi, o, inv, t_min, best):
     return tnear <= tfar * SLAB_SCALE, tnear
 
 
-def trace_rays_bvh_ordered(bvh: Bvh, o, d, t_lim, t_min: float = T_MIN,
-                           any_hit: bool = False, count: bool = False):
-    """Kernel A's walk in plain torch, vectorised over rays, with kernel
-    A's contract, arithmetic and tie rule, so its hits are the kernel's bit
-    for bit and, with ``count=True``, its visit counts are kernel D's.
+def _sort_children(ref, key, network):
+    """Compare-exchange network over the columns of (A, C) child references
+    and their entry distances: columns a, b swap where key a > key b, as the
+    kernels' network does, so equal keys keep their slots."""
+    ref, key = list(ref.unbind(1)), list(key.unbind(1))
+    for a, b in network:
+        swap = key[a] > key[b]
+        key[a], key[b] = torch.where(swap, key[b], key[a]), torch.where(swap, key[a], key[b])
+        ref[a], ref[b] = torch.where(swap, ref[b], ref[a]), torch.where(swap, ref[a], ref[b])
+    return torch.stack(ref, 1), torch.stack(key, 1)
 
-    Each ray holds a current reference and a stack of (reference, entry
-    distance) pairs. At an inner record both child boxes are tested against
-    (t_min, best): the walk goes on into the nearer one that is hit and
-    pushes the farther. At a leaf the triangle is tested; a hit at an equal
-    t goes to the lower scene triangle id, and ends a first-hit-kills lane.
-    Then the newest stack entry still within best (widened as the slab
-    test is) is taken, and the walk ends when there is none.
 
-    A record costs two slab tests.
-    Returns ``RayHits``, or ``(RayHits, BvhCounts)`` with ``count``."""
-    if bvh.depth > WALK_STACK:
-        raise ValueError(f"tree depth {bvh.depth} exceeds the walk's "
-                         f"{WALK_STACK}-entry stack")
+def _child_slabs(lo, hi, child, o, inv, t_min, best, network):
+    """The slab tests of one record's children ((A, 3, C) box columns,
+    (A, C) references) against (A, 3) rays: (references, entry distances)
+    nearest first, reference 0 (the root, nobody's child) and distance inf
+    where a child is missed or its slot is empty."""
+    refs, keys = [], []
+    for j in range(child.shape[1]):
+        hit, tnear = _slab(lo[:, :, j], hi[:, :, j], o, inv, t_min, best)
+        hit = hit & (child[:, j] != 0)
+        refs.append(torch.where(hit, child[:, j], torch.zeros_like(child[:, j])))
+        keys.append(torch.where(hit, tnear, torch.full_like(tnear, float("inf"))))
+    return _sort_children(torch.stack(refs, 1), torch.stack(keys, 1), network)
+
+
+def _front_to_back(children, slabs, tris, stack, o, d, t_lim, t_min, any_hit, count):
+    """The front-to-back walk of ``trace_rays_bvh_ordered`` and
+    ``trace_rays_bvh_wide``, vectorised over rays. ``children(k, o, inv,
+    best)`` tests the children of records ``k`` and returns
+    ``_child_slabs``' pair; ``slabs`` is the (records,) count of slab tests
+    a record needs (its children), ``tris`` the (L, 12) triangle record
+    table and ``stack`` the entries a ray may hold. With ``count`` it
+    returns ``(RayHits, slab tests, triangle tests, records)`` a ray."""
     dev = o.device
     n = o.shape[0]
-    rec = bvh.nodes.view(-1, 4, 4)
-    rec_bits = bvh.nodes.view(torch.int32).view(-1, 4, 4)
-    tri_rec = bvh.tris.view(-1, 3, 4)
-    tri_id = bvh.tris.view(torch.int32)[:, 3]
+    tri_rec = tris.view(-1, 3, 4)
+    tri_id = tris.view(torch.int32)[:, 3]
     inv = safe_inv_dir(d)
     t_min_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
     best = t_lim.abs().clone()
@@ -258,8 +279,9 @@ def trace_rays_bvh_ordered(bvh: Bvh, o, d, t_lim, t_min: float = T_MIN,
     kill = (t_lim < 0) | any_hit
     visits = torch.zeros(n, dtype=torch.int32, device=dev)
     leaves = torch.zeros(n, dtype=torch.int32, device=dev)
-    stack_ref = torch.zeros((n, bvh.depth), dtype=torch.long, device=dev)
-    stack_t = torch.zeros((n, bvh.depth), dtype=torch.float32, device=dev)
+    records = torch.zeros(n, dtype=torch.int32, device=dev)
+    stack_ref = torch.zeros((n, stack), dtype=torch.long, device=dev)
+    stack_t = torch.zeros((n, stack), dtype=torch.float32, device=dev)
     sp = torch.zeros(n, dtype=torch.long, device=dev)
     ray = torch.arange(n, device=dev)                   # live rays
     ref = torch.zeros(n, dtype=torch.long, device=dev)  # their references
@@ -268,19 +290,17 @@ def trace_rays_bvh_ordered(bvh: Bvh, o, d, t_lim, t_min: float = T_MIN,
         at_inner = ref >= 0
         if bool(at_inner.any()):
             r, k = ray[at_inner], ref[at_inner]
-            visits[r] += 2
-            hl, tl = _slab(rec[k, 0, :3], rec[k, 1, :3], o[r], inv[r], t_min_t, best[r])
-            hr, tr = _slab(rec[k, 2, :3], rec[k, 3, :3], o[r], inv[r], t_min_t, best[r])
-            cl, cr = rec_bits[k, 0, 3].long(), rec_bits[k, 1, 3].long()
-            both = hl & hr
-            left_first = tl <= tr
-            rb, spb = r[both], sp[r[both]]
-            stack_ref[rb, spb] = torch.where(left_first, cr, cl)[both]
-            stack_t[rb, spb] = torch.where(left_first, tr, tl)[both]
-            sp[rb] += 1
-            ref[at_inner] = torch.where(both, torch.where(left_first, cl, cr),
-                                        torch.where(hl, cl, cr))
-            pop[at_inner] = ~(hl | hr)
+            visits[r] += slabs[k]
+            records[r] += 1
+            child, key = children(k, o[r], inv[r], t_min_t, best[r])
+            for j in range(child.shape[1] - 1, 0, -1):  # the farthest first
+                m = child[:, j] != 0
+                rm, spm = r[m], sp[r[m]]
+                stack_ref[rm, spm] = child[m, j]
+                stack_t[rm, spm] = key[m, j]
+                sp[rm] += 1
+            ref[at_inner] = child[:, 0]
+            pop[at_inner] = child[:, 0] == 0
         done = torch.zeros_like(pop)
         at_leaf = ~at_inner
         if bool(at_leaf.any()):
@@ -311,7 +331,84 @@ def trace_rays_bvh_ordered(bvh: Bvh, o, d, t_lim, t_min: float = T_MIN,
             want &= ~taken
         ray, ref = ray[~done], ref[~done]
     hits = RayHits(best, btri, bu, bv)
-    return (hits, BvhCounts(visits, leaves)) if count else hits
+    return (hits, visits, leaves, records) if count else hits
+
+
+def trace_rays_bvh_ordered(bvh: Bvh, o, d, t_lim, t_min: float = T_MIN,
+                           any_hit: bool = False, count: bool = False):
+    """Kernel A's walk in plain torch, vectorised over rays, with kernel
+    A's contract, arithmetic and tie rule, so its hits are the kernel's bit
+    for bit and, with ``count=True``, its visit counts are kernel D's.
+
+    Each ray holds a current reference and a stack of (reference, entry
+    distance) pairs. At an inner record both child boxes are tested against
+    (t_min, best): the walk goes on into the nearer one that is hit and
+    pushes the farther. At a leaf the triangle is tested; a hit at an equal
+    t goes to the lower scene triangle id, and ends a first-hit-kills lane.
+    Then the newest stack entry still within best (widened as the slab
+    test is) is taken, and the walk ends when there is none.
+
+    A record costs two slab tests.
+    Returns ``RayHits``, or ``(RayHits, BvhCounts)`` with ``count``."""
+    if bvh.depth > WALK_STACK:
+        raise ValueError(f"tree depth {bvh.depth} exceeds the walk's "
+                         f"{WALK_STACK}-entry stack")
+    rec = bvh.nodes.view(-1, 4, 4)
+    rec_bits = bvh.nodes.view(torch.int32).view(-1, 4, 4)
+
+    def children(k, oa, ia, t_min_t, ba):
+        lo = torch.stack([rec[k, 0, :3], rec[k, 2, :3]], 2)
+        hi = torch.stack([rec[k, 1, :3], rec[k, 3, :3]], 2)
+        return _child_slabs(lo, hi, rec_bits[k, 0:2, 3].long(), oa, ia, t_min_t, ba,
+                            ((0, 1),))
+
+    slabs = torch.full((rec.shape[0],), 2, dtype=torch.int32, device=o.device)
+    out = _front_to_back(children, slabs, bvh.tris, bvh.depth, o, d, t_lim, t_min,
+                         any_hit, count)
+    return (out[0], BvhCounts(out[1], out[2])) if count else out
+
+
+# the wide walk's stack entries (csrc/trace_variants.cu): up to three a level
+WIDE_STACK = 64
+# the order a record's four children are sorted in, nearest first
+WIDE_NETWORK = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+
+
+class WideBvh(NamedTuple):
+    """The four-children-a-record tables of kernel E's ``ordered``
+    (``ops/cuda/trace.py::pack_bvh4_nodes``)."""
+
+    nodes: torch.Tensor  # (W, 32) f32 records, breadth first
+    tris: torch.Tensor   # (L, 12) f32 triangle records: ``Bvh.tris`` itself
+    stack: int           # the most stack entries a walk of it holds
+    depth: int           # records on the longest path from the root
+
+
+def trace_rays_bvh_wide(wide: WideBvh, o, d, t_lim, t_min: float = T_MIN,
+                        count: bool = False):
+    """Kernel E's ``ordered`` in plain torch: ``trace_rays_bvh_ordered``'s
+    walk over records of up to four children. At a record the four child
+    boxes are tested against (t_min, best); the children that are hit are
+    sorted by entry distance (``WIDE_NETWORK``), the walk goes on into the
+    nearest and pushes the others, the farthest first. Leaves, ties, pops
+    and first-hit-kills lanes (t_lim < 0) are kernel A's, so the hits are
+    brute force's bit for bit and, with ``count=True``, the counts are the
+    kernel's: a record costs one slab test a child it holds (an empty slot
+    is skipped by its reference and is no work the closest hit needs).
+    Returns ``RayHits``, or ``(RayHits, WideCounts)`` with ``count``."""
+    if wide.stack > WIDE_STACK:
+        raise ValueError(f"the wide tree needs {wide.stack} stack entries, the "
+                         f"walk holds {WIDE_STACK}")
+    rec = wide.nodes.view(-1, 8, 4)
+    rec_bits = wide.nodes.view(torch.int32).view(-1, 8, 4)
+
+    def children(k, oa, ia, t_min_t, ba):
+        return _child_slabs(rec[k, 0:3], rec[k, 3:6], rec_bits[k, 6].long(), oa, ia,
+                            t_min_t, ba, WIDE_NETWORK)
+
+    out = _front_to_back(children, rec_bits[:, 7, 0], wide.tris, wide.stack, o, d, t_lim,
+                         t_min, False, count)
+    return (out[0], WideCounts(*out[1:])) if count else out
 
 
 def _mt_pairs(o, d, v0, e1, e2, t_min, t_max):
