@@ -18,11 +18,31 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
 4. the main path: ``Engine`` in path mode at 1280x720, spp 1, depth 3,
    correlated sampler on, clear (1,1,1,1) -- 2 warm-up frames, then 3
    batches of 8 frames timed with CUDA events; the launch counters must
-   grow by exactly 6 trace and 3 shade launches a frame;
+   grow by exactly 6 trace and 3 shade launches a frame; then 4 more frames
+   under torch.profiler give the device time a frame by kernel and the
+   device's idle share (so does phase 4b);
 5. kernel path against plain path end to end: 160x120, depth 3, 4 frames on
    the card and on the CPU (plain versions), display-domain gate;
+3b. kernel B's albedo instantiation (baseColor-only scenes) against
+   ``shade_plain`` on the card: bounces 0 and 1 of ``make_city(grid=96)``'s
+   1280x720 tile-ordered pool, correlated sampler on, the suite's city
+   camera ``orbit_camera(0.12, radius=300, height=48)``;
+4b. the city's main path (``benchmarks/suite.py`` row 3): ``Engine`` on
+   ``make_city(grid=96)`` at 1280x720, spp 1, depth 4, correlated sampler
+   on, that camera, clear (1,1,1,1) -- 2 warm-up frames, then 3 batches of
+   8 frames timed with CUDA events; the counters must grow by exactly 8
+   trace and 4 shade launches a frame, all 4 of them albedo launches;
+5b. the city end to end, kernels against plain versions: ``make_city(grid=8)``
+   at 160x120, depth 4, 4 frames on the card and on the CPU, display gate,
+   ray counts within 0.1%;
+5c. the general shading loop on the card: a scene built in memory with
+   baseColor, metallic-roughness, emissive and normal-map textures (numpy
+   images, no file) at 160x120, depth 4, 4 frames on the card and on the
+   CPU with the same gate; on the card kernel A is launched depth + 1 times
+   a frame and kernel B not at all;
 6. the trace probes (``vkrt_tpu_torch.benchmarks``) on Cornell and on
-   ``make_city(grid=96)`` (143,568 triangles) at 1280x720: micro_trace
+   ``make_city(grid=96)`` (143,568 triangles, the scene of 3b and 4b, built
+   once) at 1280x720: micro_trace
    (kernel C's launch floor at four block sizes, kernel A closest and any
    on primary and incoherent rays), ablate_kernel (kernel D's four modes),
    variants (kernel E's variants on tile-ordered and incoherent rays) and
@@ -53,8 +73,10 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    efficiency of both walks, and both bounds.
 
 The last lines are a JSON object of the kernels (each with its time, its
-plain version's time, its bound and the one PyTorch call's time where one
-computes the same function), the card's nvidia-smi line, and
+plain version's time, its bound, the one PyTorch call's time where one
+computes the same function and its launches on its path; ``trace`` and
+``shade`` count Cornell's main path in ``launches`` and the city's in
+``city_launches``), the card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -70,11 +92,17 @@ import numpy as np
 W, H = 1280, 720
 DEPTH = 3
 CLEAR = (1.0, 1.0, 1.0, 1.0)
+# the city's main path: benchmarks/suite.py row 3 (its grid: benchmarks.CITY_GRID)
+CITY_DEPTH = 4
+CITY_CAM = dict(t=0.12, radius=300.0, height=48.0)
+# the small city of the end-to-end check: the camera scaled with the grid
+SMALL_CITY_GRID, SMALL_CITY_CAM = 8, dict(t=0.12, radius=25.0, height=4.0)
 CSRC = "vkrt_tpu_torch/csrc/"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
     "trace": (CSRC + "trace.cu", "vkrt_tpu/ops/pallas/trace.py:1084"),
     "shade": (CSRC + "shade.cu", "vkrt_tpu/ops/pallas/shade.py:179"),
+    "shade_albedo": (CSRC + "shade.cu", "vkrt_tpu/ops/pallas/shade.py:179 (albedo)"),
     "floor": (CSRC + "probes.cu", "benchmarks/micro_trace.py:51"),
     "trace_ablate": (CSRC + "trace_variants.cu", "benchmarks/scratch/ablate_kernel.py:95"),
     "trace_variant": (CSRC + "trace_variants.cu", "benchmarks/scratch/variants.py:220"),
@@ -378,20 +406,87 @@ def phase_kernels(dev, results):
     return shadow_pool
 
 
-def phase_main_path(dev, results):
+def phase_albedo(dev, results, cb):
+    """Phase 3b: kernel B's albedo instantiation against ``shade_plain`` on
+    bounces 0 and 1 of the city's 1280x720 tile-ordered pool, corr on
+    (``cb``: the city's BuiltScene; its tracer is kernel A)."""
     import torch
 
-    from vkrt_tpu_torch.config import RenderSettings
-    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.models.pathtracer import corr_seed_for
+    from vkrt_tpu_torch.ops.cuda.shade import (
+        ShadeParams, clamp_bounds, scene_tables, shade, shade_plain,
+    )
+    from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
+    from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
+    from vkrt_tpu_torch.scene import scene_base_only_textured
+    from vkrt_tpu_torch.utils.camera import generate_rays, orbit_camera, pixel_coords, tile_perm
+
+    scene, tracer = cb.scene, cb.tracer
+    if not scene_base_only_textured(scene):
+        raise AssertionError("the city is not a baseColor-only scene")
+    perm, _ = tile_perm(W, H)
+    pid = torch.as_tensor(perm.astype(np.int64), device=dev)
+    cam = orbit_camera(**CITY_CAM).matrices(W, H, dev)
+    frame, n = 1, W * H
+    seed = tea(pid, frame)
+    seed, r1 = rnd(seed)
+    seed, r2 = rnd(seed)
+    o, d = generate_rays(cam, W, H, torch.stack([r1, r2], -1), pix=pixel_coords(W, H, dev)[pid])
+    rays = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                        torch.full((n,), T_MAX, device=dev)]).contiguous()
+    carry = torch.zeros((14, n), device=dev)
+    carry[0:3] = 1.0
+    carry[6] = 1.0
+    mat_tab, light_tab = scene_tables(scene)
+    lo, hi = clamp_bounds(False)
+    errs, sh_tri = [], None
+    for dd in range(2):
+        hit = tracer.trace_block(rays)
+        tab = block_table_rep(n // 1024, corr_seed_for(frame, 0), dd, device=dev)
+        p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2, hitdist_weight=1.0,
+                        hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX, clear=CLEAR[:3],
+                        clamp_lo=lo, clamp_hi=hi, albedo=True)
+        args = (carry, seed, rays, hit, sh_tri, scene, mat_tab, light_tab, tab, p)
+        out = shade(*args)
+        errs.append(compare_shade(f"city bounce {dd} 1280x720 corr, albedo", out,
+                                  shade_plain(*args)))
+        if dd == 0:
+            s_ms = cuda_ms(lambda: shade(*args))
+            s_plain = cuda_ms(lambda: shade_plain(*args), reps=3)
+            # every input read once, every output written once: the lane
+            # columns, the corner rows of the triangles this pool hits (the
+            # kernel reads no others), the material, light, corr and texture
+            # tables whole
+            tris = hit.tri[hit.tri >= 0].unique()
+            rows = tris.numel() * (nbytes(scene.corner_normal[:1], scene.corner_tangent[:1],
+                                          scene.corner_uv[:1], scene.tri_mat[:1]))
+            io = rows + nbytes(carry, seed, rays, *hit, mat_tab, light_tab, tab,
+                               scene.mat_base_tex, scene.tex_rgba, scene.tex_size,
+                               out.carry, out.seed, out.next_rays, out.shadow_rays)
+            b_ms, b_by = bound(io, 0)
+            hit_share = float((hit.tri >= 0).float().mean())
+            log(f"[shade] city bounce 0 1280x720, albedo: kernel {s_ms:.4f} ms, plain "
+                f"{s_plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {io / n:.1f} B/lane; "
+                f"{hit_share:.4f} of the lanes hit, {tris.numel()} distinct triangles)")
+            results["shade_albedo"] = {"ms": s_ms, "plain_ms": s_plain, "bound_ms": b_ms,
+                                       "bound_by": b_by, "library_ms": None}
+        sh_tri = tracer.trace_block(out.shadow_rays).tri
+        carry, seed, rays = out.carry, out.seed, out.next_rays
+    results["shade_albedo"]["max_abs_err"] = max(errs)
+
+
+def drive_engine(eng, depth: int, albedo: bool, label: str):
+    """A main path: 2 warm-up frames, then 3 batches of 8 frames timed with
+    CUDA events, with the launch counters set to 0 just before and read
+    just after. Kernel A must run 2 * depth and kernel B depth times a
+    frame (all of them albedo launches when ``albedo``, else none). Returns
+    (best batch (ms/frame, Mrays/s, rays/frame), launches)."""
+    import torch
+
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
-    from vkrt_tpu_torch.scene import load_cornell
-    from vkrt_tpu_torch.utils.camera import Camera
 
-    settings = RenderSettings(samples=1, depth=DEPTH, rt_mode=1, corr_sampler=True)
-    eng = Engine(load_cornell(device=dev), W, H, settings, Camera(), CLEAR)
-    trace_kernel.launches = 0
-    shade.launches = 0
+    trace_kernel.launches = shade.launches = shade.albedo_launches = 0
     frames = 0
     for _ in range(2):  # warm-up
         eng.render_frame()
@@ -411,52 +506,240 @@ def phase_main_path(dev, results):
         ms = start.elapsed_time(end)
         rays = eng.total_rays - rays0
         batches.append((ms / 8, rays / (ms * 1e-3) / 1e6, rays / 8))
-    launches = {"trace": trace_kernel.launches, "shade": shade.launches}
+    launches = {"trace": trace_kernel.launches, "shade": shade.launches,
+                "shade_albedo": shade.albedo_launches}
     for ms, mrays, rpf in batches:
-        log(f"[main] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
+        log(f"[{label}] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
     best = min(batches)
-    log(f"[main] {W}x{H} spp 1 depth {DEPTH} corr on: best batch {best[0]:.4f} ms/frame, "
-        f"{best[1]:.4f} Mrays/s; launches {launches} over {frames} frames")
-    if launches != {"trace": 6 * frames, "shade": 3 * frames}:
-        raise AssertionError(f"launch counts {launches} != 6 trace + 3 shade per frame")
+    log(f"[{label}] {eng.width}x{eng.height} spp 1 depth {depth} corr on: best batch "
+        f"{best[0]:.4f} ms/frame, {best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame; "
+        f"launches {launches} over {frames} frames")
+    want = {"trace": 2 * depth * frames, "shade": depth * frames,
+            "shade_albedo": depth * frames if albedo else 0}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
     accum = eng.accum.cpu().numpy()
     if not np.isfinite(accum).all():
         raise AssertionError(f"non-finite accum ({int((~np.isfinite(accum)).sum())} elements)")
     if float(accum.max()) <= 0.0:
         raise AssertionError("all-zero/black accum")
-    results["trace"]["launches"] = launches["trace"]
-    results["shade"]["launches"] = launches["shade"]
-    results["main"] = {"ms_per_frame": best[0], "mrays_per_s": best[1]}
+    return best, launches
 
 
-def phase_end_to_end(dev):
+def profile_frames(eng, label: str, frames: int = 4) -> dict:
+    """Where a frame's device time goes: ``frames`` frames under
+    torch.profiler, the device kernels' time a frame by kernel A, kernel B
+    and the rest (PyTorch's own kernels), the device's idle share between
+    the first kernel's start and the last one's end, and kernel launches a
+    frame. The profiled frames are extra: they are not in the timed
+    batches or the launch counts."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            eng.render_frame()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError(f"{label}: the profiler saw no device kernel")
+    by = {"kernel A": 0.0, "kernel B": 0.0, "other": 0.0}
+    for start, end, name in spans:
+        key = ("kernel A" if "trace_kernel" in name else
+               "kernel B" if "shade_kernel" in name else "other")
+        by[key] += (end - start) * 1e-3 / frames
+    busy, (lo, hi, _) = 0.0, spans[0]
+    for start, end, _ in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    busy += hi - lo
+    window = max(end for _, end, _ in spans) - spans[0][0]
+    launches = sum(e.name == "cudaLaunchKernel" for e in events) / frames
+    out = {"device_ms": sum(by.values()), "by_kernel_ms": by,
+           "idle_share": 1.0 - busy / window, "kernels_per_frame": len(spans) / frames,
+           "launch_calls_per_frame": launches}
+    log(f"[{label}] profile of {frames} frames: device kernel time {out['device_ms']:.4f} "
+        f"ms/frame (" + ", ".join(f"{k} {v:.4f}" for k, v in by.items()) + f"), idle share "
+        f"{out['idle_share']:.4f} of the {window * 1e-3 / frames:.4f} ms/frame device span, "
+        f"{out['kernels_per_frame']:.0f} kernels and {launches:.0f} cudaLaunchKernel calls a frame")
+    return out
+
+
+def phase_main_path(dev, results):
     from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.scene import load_cornell
     from vkrt_tpu_torch.utils.camera import Camera
 
-    w, h = 160, 120
     settings = RenderSettings(samples=1, depth=DEPTH, rt_mode=1, corr_sampler=True)
-    imgs, rays = {}, {}
-    for where in (dev, torch.device("cpu")):
-        eng = Engine(load_cornell(device=where), w, h, settings, Camera(), CLEAR)
-        for _ in range(4):
-            out = eng.render_frame()
-        imgs[where.type] = out.cpu().numpy().astype(np.float64)
-        rays[where.type] = eng.total_rays
+    eng = Engine(load_cornell(device=dev), W, H, settings, Camera(), CLEAR)
+    best, launches = drive_engine(eng, DEPTH, False, "main")
+    results["trace"]["launches"] = launches["trace"]
+    results["shade"]["launches"] = launches["shade"]
+    results["main"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
+                       "profile": profile_frames(eng, "main")}
+
+
+def phase_city_main_path(dev, results, city):
+    """Phase 4b: suite row 3 through ``Engine`` (which builds its own BVH,
+    as a user's call does)."""
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+
+    settings = RenderSettings(samples=1, depth=CITY_DEPTH, rt_mode=1, corr_sampler=True)
+    t0 = time.perf_counter()
+    eng = Engine(city, W, H, settings, orbit_camera(**CITY_CAM), CLEAR)
+    log(f"[city] Engine on {city.num_tris} triangles (padded): set-up with its BVH "
+        f"{time.perf_counter() - t0:.2f} s")
+    best, launches = drive_engine(eng, CITY_DEPTH, True, "city")
+    results["shade_albedo"]["launches"] = launches["shade_albedo"]
+    # the city path's own counts of kernels A and B (B's: all of them albedo
+    # launches, so they equal shade_albedo's); "launches" is Cornell's
+    results["trace"]["city_launches"] = launches["trace"]
+    results["shade"]["city_launches"] = launches["shade"]
+    results["city"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
+                       "rays_per_frame": best[2], "profile": profile_frames(eng, "city")}
+
+
+def display_gate(name, imgs, rays) -> None:
+    """The display-domain gate (tests/test_accuracy_oracle.py:83-88) between
+    the card's and the CPU's images, and their ray counts within 0.1%."""
     disp = {k: np.clip(np.clip(v, 0, None) ** (1.0 / 2.2), 0, 1) for k, v in imgs.items()}
     err = np.abs(disp["cuda"] - disp["cpu"]).max(-1)
     p99 = float(np.percentile(err, 99))
     diverged = err > 1e-2
     rmse = float(np.sqrt(np.mean((disp["cuda"] - disp["cpu"])[~diverged] ** 2)))
-    log(f"[e2e] {w}x{h} depth {DEPTH} 4 frames, kernels vs plain: p99 {p99:.3g}, "
-        f"diverged {diverged.mean():.4f}, rmse {rmse:.3g}, rays {rays}")
+    log(f"[e2e] {name}, kernels vs plain: p99 {p99:.3g}, diverged {diverged.mean():.4f}, "
+        f"rmse {rmse:.3g}, rays {rays}, mean {float(imgs['cuda'].mean()):.4f}")
+    for k, v in imgs.items():
+        if not np.isfinite(v).all() or float(v.max()) <= 0.0:
+            raise AssertionError(f"{name}: the {k} image is not finite and non-black")
     if not (p99 <= 1e-3 and diverged.mean() < 0.01 and rmse <= 1e-3):
-        raise AssertionError("end-to-end display gate failed")
+        raise AssertionError(f"{name}: end-to-end display gate failed")
     if abs(rays["cuda"] - rays["cpu"]) > 1e-3 * rays["cpu"]:
-        raise AssertionError(f"ray counts differ: {rays}")
+        raise AssertionError(f"{name}: ray counts differ: {rays}")
+
+
+def render_both(dev, make_scene, camera, depth: int, w: int = 160, h: int = 120,
+                frames: int = 4):
+    """``frames`` frames of ``Engine`` on the card and on the CPU (plain
+    versions): ({device: image}, {device: rays}, the card's launches)."""
+    import torch
+
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.ops.cuda.shade import shade
+    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+
+    settings = RenderSettings(samples=1, depth=depth, rt_mode=1, corr_sampler=True)
+    imgs, rays, launches = {}, {}, None
+    for where in (dev, torch.device("cpu")):
+        eng = Engine(make_scene(where), w, h, settings, camera, CLEAR)
+        trace_kernel.launches = shade.launches = 0
+        for _ in range(frames):
+            out = eng.render_frame()
+        imgs[where.type] = out.cpu().numpy().astype(np.float64)
+        rays[where.type] = eng.total_rays
+        if where.type == "cuda":
+            launches = {"trace": trace_kernel.launches, "shade": shade.launches}
+    return imgs, rays, launches
+
+
+def phase_end_to_end(dev):
+    from vkrt_tpu_torch.scene import load_cornell
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    imgs, rays, _ = render_both(dev, lambda where: load_cornell(device=where), Camera(), DEPTH)
+    display_gate(f"Cornell 160x120 depth {DEPTH} 4 frames", imgs, rays)
+
+
+def phase_city_end_to_end(dev):
+    from vkrt_tpu_torch.scene import make_city
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+
+    imgs, rays, launches = render_both(
+        dev, lambda where: make_city(grid=SMALL_CITY_GRID, device=where),
+        orbit_camera(**SMALL_CITY_CAM), CITY_DEPTH)
+    display_gate(f"make_city(grid={SMALL_CITY_GRID}) 160x120 depth {CITY_DEPTH} 4 frames",
+                 imgs, rays)
+    want = {"trace": 2 * CITY_DEPTH * 4, "shade": CITY_DEPTH * 4}
+    if launches != want:
+        raise AssertionError(f"small city launches {launches} != {want}")
+
+
+def general_scene(device):
+    """A scene that takes the general shading loop, built in memory: a slab
+    and three boxes whose materials use every texture slot (numpy images:
+    a checker, a tangent-space normal ramp, a metallic-roughness noise and
+    an emissive window grid), lit by two point lights."""
+    from vkrt_tpu_torch.scene import _boxes, _boxes_uvs, scene_from_soup
+    from vkrt_tpu_torch.utils import gltf as gltf_mod
+
+    n = 32
+    rng = np.random.default_rng(5)
+    ij = np.arange(n)
+    checker = np.zeros((n, n, 4), np.uint8)
+    cell = (ij[:, None] // 4 + ij[None, :] // 4) % 2 == 1
+    checker[..., 0] = np.where(cell, 220, 40)
+    checker[..., 1] = np.where(cell, 60, 180)
+    checker[..., 2], checker[..., 3] = 40, 255
+    ramp = np.linspace(-0.4, 0.4, n, dtype=np.float32)
+    nx, ny = np.meshgrid(ramp, ramp)
+    normal = np.zeros((n, n, 4), np.uint8)
+    for c, x in enumerate((nx, ny, np.sqrt(1.0 - nx ** 2 - ny ** 2))):
+        normal[..., c] = ((x * 0.5 + 0.5) * 255).astype(np.uint8)
+    normal[..., 3] = 255
+    mr = rng.integers(0, 256, (n, n, 4), dtype=np.uint8)
+    mr[..., 3] = 255
+    glow = np.full((n, n, 4), 20, np.uint8)
+    glow[4::8, 4::8, :3] = 255
+    glow[..., 3] = 255
+    images = [gltf_mod.GltfImage(im, name) for im, name in
+              ((checker, "checker"), (normal, "normal"), (mr, "mr"), (glow, "glow"))]
+    f32 = np.float32
+    mats = [
+        gltf_mod.GltfMaterial(np.ones(4, f32), base_color_texture=0, normal_texture=1,
+                              metallic_factor=0.0, roughness_factor=0.9),
+        gltf_mod.GltfMaterial(np.array([0.9, 0.8, 0.7, 1], f32), base_color_texture=0,
+                              metallic_roughness_texture=2, metallic_factor=0.8,
+                              roughness_factor=0.6),
+        gltf_mod.GltfMaterial(np.array([0.5, 0.5, 0.6, 1], f32), emissive_texture=3,
+                              emissive_factor=np.array([2.0, 1.5, 1.0], f32),
+                              metallic_factor=0.2, roughness_factor=0.4),
+        gltf_mod.GltfMaterial(np.array([0.7, 0.7, 0.7, 1], f32), metallic_factor=0.0),
+    ]
+    centers = [(0.0, -0.25, 0.0), (-2.0, 1.0, -1.0), (1.5, 0.75, 0.5), (0.0, 2.5, -3.0)]
+    halves = [(6.0, 0.25, 6.0), (1.0, 1.0, 1.0), (0.75, 0.75, 0.75), (2.0, 0.5, 0.5)]
+    tris = _boxes(centers, halves, [0.0, 0.4, -0.3, 0.1])
+    uvs = _boxes_uvs(halves, [0.25, 0.5, 0.5, 1.0])
+    lights = [gltf_mod.GltfLight(np.array(p, f32), np.ones(3, f32), 60.0, 0)
+              for p in ((2.0, 6.0, 3.0), (-3.0, 5.0, -1.0))]
+    return scene_from_soup(tris, np.repeat(np.arange(4), 12).tolist(), mats, lights,
+                           images=images, uvs=uvs.astype(f32), device=device)
+
+
+def phase_general_loop(dev):
+    """Phase 5c: a scene of every texture slot through the general loop:
+    kernel A on the card, shading in PyTorch."""
+    from vkrt_tpu_torch.ops.cuda.shade import kernel_shading_available
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    if kernel_shading_available(general_scene("cpu")):
+        raise AssertionError("the general scene would take the packed loop")
+    cam = Camera(eye=(5.0, 4.0, 9.0), center=(0.0, 0.5, 0.0))
+    imgs, rays, launches = render_both(dev, general_scene, cam, CITY_DEPTH)
+    display_gate(f"general loop, every texture slot, 160x120 depth {CITY_DEPTH} 4 frames",
+                 imgs, rays)
+    want = {"trace": (CITY_DEPTH + 1) * 4, "shade": 0}
+    log(f"[general] launches on the card over 4 frames: {launches}")
+    if launches != want:
+        raise AssertionError(f"general loop launches {launches} != {want}")
 
 
 def sync(dev) -> None:
@@ -487,11 +770,11 @@ def check_equal(name, a, b) -> None:
                                  f"{int((x != y).sum())} of {x.numel()} elements")
 
 
-def phase_probes(dev, results, shadow_pool):
+def phase_probes(dev, results, shadow_pool, city):
     """Phase 6: the trace-probe entry points at full size, their launch
     counts, then every probe kernel against its plain version."""
     t_phase = time.perf_counter()
-    run = drive_probes(dev)
+    run = drive_probes(dev, city)
     log(f"[probes] launches on the probe path: {run['launches']}; the entry points took "
         f"{time.perf_counter() - t_phase:.1f} s")
     if not all(run["launches"].values()):
@@ -500,10 +783,10 @@ def phase_probes(dev, results, shadow_pool):
     log(f"[probes] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
-def drive_probes(dev) -> dict:
-    """Build Cornell and the city, then run every probe entry point as a
-    user runs it, with the launch counters set to 0 just before and read
-    just after."""
+def drive_probes(dev, city) -> dict:
+    """Build Cornell (``city``: the city's BuiltScene, built already), then
+    run every probe entry point as a user runs it, with the launch counters
+    set to 0 just before and read just after."""
     import torch
 
     from vkrt_tpu_torch.benchmarks import ablate_kernel, build, micro_trace, variants, vpupeak
@@ -511,8 +794,7 @@ def drive_probes(dev) -> dict:
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
     from vkrt_tpu_torch.ops.cuda.trace_variants import trace_ablate, trace_variant
 
-    built = {name: build(name, dev) for name in ("cornell", "city")}
-    city = built["city"]
+    built = {"cornell": build("cornell", dev), "city": city}
     log(f"[probes] city: {city.scene.num_tris} triangles (padded), host build "
         f"{city.seconds['scene']:.4f} s scene + {city.seconds['bvh']:.4f} s BVH + "
         f"{city.seconds['tables']:.4f} s tables; {city.tables.bvh.threaded.shape[0]} BVH nodes, "
@@ -842,6 +1124,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from vkrt_tpu_torch import device as kdev
+    from vkrt_tpu_torch.benchmarks import CITY_GRID, build
     from vkrt_tpu_torch.ops.cuda.trace_variants import INSTANTIATIONS
     from vkrt_tpu_torch.utils import native
 
@@ -872,16 +1155,34 @@ def main() -> int:
         log(f"[build] kernel E {v} as compiled: {info['registers']} registers a thread, "
             f"{info['shared_bytes']} B shared memory a block, {info['local_bytes']} B local "
             f"memory a thread, {info['blocks_per_sm']} blocks of 128 threads an SM")
+    for albedo in (False, True):
+        info = kdev.shade_info(albedo)
+        log(f"[build] kernel B {'albedo' if albedo else 'untextured'} as compiled: "
+            f"{info['registers']} registers a thread, {info['shared_bytes']} B shared memory "
+            f"a block, {info['local_bytes']} B local memory a thread, "
+            f"{info['blocks_per_sm']} blocks of 128 threads an SM")
     t0 = time.perf_counter()
     native.library()
     log(f"[build] native SAH builder: {time.perf_counter() - t0:.2f} s")
 
+    # the city of phases 3b, 4b and 6, built once
+    t0 = time.perf_counter()
+    city = build("city", dev)
+    log(f"[city] make_city(grid={CITY_GRID}): {city.scene.num_tris} triangles (padded), "
+        f"host build {time.perf_counter() - t0:.2f} s with its BVH and probe tables")
+
     results, pools = {}, {}
     for name, phase in (("2-3 kernels",
                          lambda: pools.update(shadow=phase_kernels(dev, results))),
+                        ("3b albedo kernel", lambda: phase_albedo(dev, results, city)),
                         ("4 main path", lambda: phase_main_path(dev, results)),
+                        ("4b city main path", lambda: phase_city_main_path(dev, results,
+                                                                           city.scene)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
-                        ("6 probes", lambda: phase_probes(dev, results, pools["shadow"]))):
+                        ("5b city end to end", lambda: phase_city_end_to_end(dev)),
+                        ("5c general loop", lambda: phase_general_loop(dev)),
+                        ("6 probes", lambda: phase_probes(dev, results, pools["shadow"],
+                                                          city))):
         t0 = time.perf_counter()
         phase()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

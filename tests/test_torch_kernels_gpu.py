@@ -6,7 +6,9 @@ Run on the card: ``python -m pytest tests/test_torch_kernels_gpu.py -q``.
 Tolerances: kernel A's verdicts equal brute force's on every lane, and its
 closest lanes are bit-equal to it, triangle id included (the walk gives an
 equal-t tie to the lower id, as brute force does); shade masks equal on >= 99.9% of lanes, seeds bit-equal there, float
-columns within 1e-4 relative (1e-6 absolute) on >= 99% of lanes."""
+columns within 1e-4 relative (1e-6 absolute) on >= 99% of lanes; kernel
+B's albedo instantiation on lanes that fetch nothing within 1e-6 relative
+of the untextured one on >= 99.9% of lanes."""
 
 import numpy as np
 import pytest
@@ -140,6 +142,109 @@ def test_shade_kernel_matches_plain(cuda, corr):
             assert ok.mean(axis=1).min() >= 0.99
         carry, seed, rays = k.carry, k.seed, k.next_rays
         sh_tri = tracer.trace_block(k.shadow_rays).tri
+
+
+def _city_pool(cuda, w=256, h=128):
+    """Bounce 0 of a seeded make_city(grid=16) pool seen from the suite's
+    camera, scaled with the grid: (scene, tracer, carry, seed, rays)."""
+    from vkrt_tpu_torch.ops.cuda.shade import C_ACTIVE
+    from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer
+    from vkrt_tpu_torch.ops.intersect import T_MAX
+    from vkrt_tpu_torch.ops.rng import rnd, tea
+    from vkrt_tpu_torch.scene import make_city
+    from vkrt_tpu_torch.utils.camera import generate_rays, orbit_camera
+
+    n = w * h
+    scene = make_city(grid=16, device=cuda)
+    seed = tea(torch.arange(n, device=cuda), 5)
+    seed, r1 = rnd(seed)
+    seed, r2 = rnd(seed)
+    cam = orbit_camera(0.12, radius=50.0, height=8.0).matrices(w, h, cuda)
+    o, d = generate_rays(cam, w, h, torch.stack([r1, r2], -1))
+    rays = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                        torch.full((n,), T_MAX, device=cuda)]).contiguous()
+    carry = torch.zeros((14, n), device=cuda)
+    carry[0:3] = 1.0
+    carry[C_ACTIVE] = 1.0
+    return scene, make_cuda_tracer(scene), carry, seed, rays
+
+
+def _close_outputs(k, q, lanes=None, frac=0.99, rtol=1e-4):
+    """ShadeOut ``k`` against ``q``: masks equal on >= 99.9% of the lanes,
+    seeds bit-equal there, every column within ``rtol`` (1e-6 absolute) on
+    >= ``frac`` of them (``lanes``: a bool mask of the lanes compared)."""
+    from vkrt_tpu_torch.ops.cuda.shade import C_ACTIVE, C_PSH
+
+    sel = slice(None) if lanes is None else lanes.cpu().numpy()
+    kc, qc = k.carry.cpu().numpy()[:, sel], q.carry.cpu().numpy()[:, sel]
+    agree = ((kc[C_ACTIVE] > 0) == (qc[C_ACTIVE] > 0)) & ((kc[C_PSH] > 0) == (qc[C_PSH] > 0))
+    assert agree.mean() >= 0.999
+    np.testing.assert_array_equal(k.seed.cpu().numpy()[sel][agree],
+                                  q.seed.cpu().numpy()[sel][agree])
+    for a, b in ((kc, qc), (k.next_rays.cpu().numpy()[:, sel], q.next_rays.cpu().numpy()[:, sel]),
+                 (k.shadow_rays.cpu().numpy()[:, sel], q.shadow_rays.cpu().numpy()[:, sel])):
+        ok = np.isclose(a, b, rtol=rtol, atol=1e-6) | (np.isnan(a) & np.isnan(b))
+        assert ok.mean(axis=1).min() >= frac
+
+
+@pytest.mark.parametrize("corr", [True, False])
+def test_shade_albedo_kernel_matches_plain(cuda, corr):
+    """Kernel B's albedo instantiation against ``shade_plain`` with the
+    albedo branch, three bounces of a city pool; the counters count it."""
+    from vkrt_tpu_torch.ops.cuda.shade import (
+        ShadeParams, clamp_bounds, scene_tables, shade, shade_plain,
+    )
+    from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
+    from vkrt_tpu_torch.ops.rng import block_table_rep
+
+    scene, tracer, carry, seed, rays = _city_pool(cuda)
+    n = seed.shape[0]
+    mat_tab, light_tab = scene_tables(scene)
+    lo, hi = clamp_bounds(False)
+    sh_tri = None
+    for dd in range(3):
+        hit = tracer.trace_block(rays)
+        tab = block_table_rep(n // 1024, 91, dd, device=cuda) if corr else None
+        p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2, hitdist_weight=1.0,
+                        hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX,
+                        clear=(1.0, 1.0, 1.0), clamp_lo=lo, clamp_hi=hi, albedo=True)
+        args = (carry, seed, rays, hit, sh_tri, scene, mat_tab, light_tab, tab, p)
+        before = (shade.launches, shade.albedo_launches)
+        k = shade(*args)
+        assert (shade.launches, shade.albedo_launches) == (before[0] + 1, before[1] + 1)
+        _close_outputs(k, shade_plain(*args))
+        if dd == 0:  # the fetch is live: the untextured kernel differs
+            u = shade(*args[:-1], p._replace(albedo=False))
+            assert (u.carry[0:3] != k.carry[0:3]).any(0).float().mean() > 0.05
+        carry, seed, rays = k.carry, k.seed, k.next_rays
+        sh_tri = tracer.trace_block(k.shadow_rays).tri
+
+
+def test_shade_albedo_miss_lanes_and_untextured_materials(cuda):
+    """Lanes that fetch nothing: a miss lane, a material whose baseColor
+    index is -1 (the city's rooftops), and every lane when all indices are
+    -1. There the albedo instantiation computes what the untextured one
+    does (a multiply by 1.0 is exact)."""
+    from vkrt_tpu_torch.ops.cuda.shade import ShadeParams, clamp_bounds, scene_tables, shade
+    from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
+
+    scene, tracer, carry, seed, rays = _city_pool(cuda)
+    hit = tracer.trace_block(rays)
+    mat_tab, light_tab = scene_tables(scene)
+    lo, hi = clamp_bounds(False)
+    p = ShadeParams(d=0, first=True, resolve_hd=False, hitdist_weight=1.0,
+                    hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX,
+                    clear=(1.0, 1.0, 1.0), clamp_lo=lo, clamp_hi=hi)
+    tri = hit.tri
+    white = (tri < 0) | (scene.mat_base_tex[scene.tri_mat[tri.clamp_min(0).long()].long()] < 0)
+    assert (tri < 0).any() and (white & (tri >= 0)).any() and (~white).any()
+    plain_args = (carry, seed, rays, hit, None)
+    u = shade(*plain_args, scene, mat_tab, light_tab, None, p)
+    a = shade(*plain_args, scene, mat_tab, light_tab, None, p._replace(albedo=True))
+    _close_outputs(a, u, lanes=white, frac=0.999, rtol=1e-6)
+    none = scene._replace(mat_base_tex=torch.full_like(scene.mat_base_tex, -1))
+    a = shade(*plain_args, none, mat_tab, light_tab, None, p._replace(albedo=True))
+    _close_outputs(a, u, frac=0.999, rtol=1e-6)
 
 
 def test_wrappers_refuse_bad_inputs(cuda):

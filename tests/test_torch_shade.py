@@ -16,7 +16,9 @@ import pytest
 import torch
 
 import vkrt_tpu.scene as jscene
-from vkrt_tpu.ops.pallas.shade import shade_call, scene_tables as j_scene_tables
+from vkrt_tpu.ops.pallas.shade import (
+    shade_call, scene_tables as j_scene_tables, xla_albedo_block,
+)
 from vkrt_tpu.ops.rng import block_table_rep as j_block_table_rep
 from vkrt_tpu.utils.camera import tile_perm
 from vkrt_tpu_torch.models.pathtracer import corr_seed_for
@@ -27,7 +29,7 @@ from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
 from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
 from vkrt_tpu_torch.ops.trace import Tracer
 from vkrt_tpu_torch.scene import scene_from_numpy
-from vkrt_tpu_torch.utils.camera import Camera, generate_rays, pixel_coords
+from vkrt_tpu_torch.utils.camera import Camera, generate_rays, orbit_camera, pixel_coords
 
 torch.set_num_threads(2)
 W, H = 64, 32
@@ -37,7 +39,7 @@ CLEAR = (0.9, 0.8, 0.7)
 FRAME = 1
 
 
-def _states(ts, corr: bool):
+def _states(ts, corr: bool, cam=Camera(), albedo: bool = False):
     """Per bounce d = 0..2: (carry, seed, rays, hit, prev shadow tri) as
     the port's loop feeds its shade step."""
     perm, _ = tile_perm(W, H)
@@ -45,7 +47,7 @@ def _states(ts, corr: bool):
     seed = tea(pid, FRAME)
     seed, r1 = rnd(seed)
     seed, r2 = rnd(seed)
-    o, d = generate_rays(Camera().matrices(W, H), W, H, torch.stack([r1, r2], -1),
+    o, d = generate_rays(cam.matrices(W, H), W, H, torch.stack([r1, r2], -1),
                          pix=pixel_coords(W, H)[pid])
     rays = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
                         torch.full((N,), T_MAX)])
@@ -65,7 +67,7 @@ def _states(ts, corr: bool):
         p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2,
                         hitdist_weight=1.0, hitdist_accumulate=True,
                         t_min=T_MIN, t_max=T_MAX, clear=CLEAR,
-                        clamp_lo=lo, clamp_hi=hi)
+                        clamp_lo=lo, clamp_hi=hi, albedo=albedo)
         carry, seed, rays, shadow = shade(carry, seed, rays, hit, sh_tri, ts,
                                           mat_tab, light_tab, tab, p)
         sh_tri = tracer.trace_block(shadow).tri
@@ -120,13 +122,37 @@ CASES = [  # (d, first, resolve_hd)
 @pytest.mark.parametrize("d,first,resolve_hd", CASES)
 def test_shade_plain_matches_pallas(scenes, corr, d, first, resolve_hd):
     js, ts, states = scenes
-    carry, seed, rays, hit, sh_tri, tab = states[corr][d]
+    _check_against_pallas(js, ts, states[corr][d], corr, d, first, resolve_hd)
+
+
+@pytest.fixture(scope="module")
+def city():
+    js = jscene.make_city(grid=4)
+    ts = scene_from_numpy({k: np.asarray(v) for k, v in js._asdict().items()}, device="cpu")
+    cam = orbit_camera(0.12, radius=14.0, height=5.0)
+    return js, ts, {c: _states(ts, c, cam, albedo=True) for c in (True, False)}
+
+
+@pytest.mark.parametrize("corr", [True, False])
+def test_shade_plain_albedo_matches_pallas(city, corr):
+    """The albedo branch (baseColor-only scenes) on bounce 1 of a
+    make_city(grid=4) frame, against ``shade_call(..., albedo=
+    xla_albedo_block(...))``: the texel fetch moves into the shade step."""
+    js, ts, states = city
+    from vkrt_tpu_torch.scene import scene_base_only_textured
+
+    assert scene_base_only_textured(ts)
+    _check_against_pallas(js, ts, states[corr][1], corr, 1, False, False, albedo=True)
+
+
+def _check_against_pallas(js, ts, state, corr, d, first, resolve_hd, albedo=False):
+    carry, seed, rays, hit, sh_tri, tab = state
     if not first and sh_tri is None:
         pytest.fail("a non-first bounce needs the previous shadow verdicts")
     lo, hi = clamp_bounds(True)
     p = ShadeParams(d=d, first=first, resolve_hd=resolve_hd, hitdist_weight=1.0,
                     hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX,
-                    clear=CLEAR, clamp_lo=lo, clamp_hi=hi)
+                    clear=CLEAR, clamp_lo=lo, clamp_hi=hi, albedo=albedo)
     mat_tab, light_tab = scene_tables(ts)
     got = shade_plain(carry, seed, rays, hit, None if first else sh_tri, ts,
                       mat_tab, light_tab, tab, p)
@@ -146,13 +172,15 @@ def test_shade_plain_matches_pallas(scenes, corr, d, first, resolve_hd):
         tri = sh_tri.numpy()
         sh_blk = jnp.asarray(_pack([np.zeros(N, np.float32), tri.view(np.float32),
                                     np.zeros(N, np.float32), np.zeros(N, np.float32)]))
+    res_blk = jnp.asarray(_resolve_block(js, hit))
     c2, nx, sh = shade_call(
         jmat, jlight, jnp.asarray(params), jnp.asarray(carry_j),
-        jnp.asarray(_pack(rays.numpy())), jnp.asarray(_resolve_block(js, hit)),
+        jnp.asarray(_pack(rays.numpy())), res_blk,
         d=d, first=first, resolve_hd=resolve_hd, n_mats=int(jmat.shape[0]),
         n_lights=int(jlight.shape[0]), hitdist_weight=1.0,
         hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX, interpret=True,
         trace_out_shadow=sh_blk, corr=corr,
+        albedo=xla_albedo_block(js, res_blk) if albedo else None,
     )
     c2, nx, sh = np.asarray(c2), np.asarray(nx), np.asarray(sh)
 
@@ -173,3 +201,8 @@ def test_shade_plain_matches_pallas(scenes, corr, d, first, resolve_hd):
         diff = np.where(same, 0.0, np.abs(a.astype(np.float64) - b))
         assert diff.mean() < 1e-3, (k, diff.mean())
         assert (diff > 1e-3).mean() < 0.01, (k, (diff > 1e-3).mean())
+    if albedo:  # the fetched texels move the shading: the branch is live
+        plain = shade_plain(carry, seed, rays, hit, None if first else sh_tri, ts,
+                            mat_tab, light_tab, tab, p._replace(albedo=False))
+        moved = (plain.carry[:3] != got.carry[:3]).any(0).float().mean()
+        assert moved > 0.05, moved

@@ -4,6 +4,7 @@ Usage:
     python -m vkrt_tpu_torch.app --procedural cornell --mode path \\
         --width 1280 --height 720 --frames 16 --out out.png
     python -m vkrt_tpu_torch.app --config config.json --spp 2 --depth 5
+    python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --depth 4
 
 Renders on the card (``--device cuda``, the default: it fails when there is
 no card) or, with ``--device cpu``, through the kernels' plain versions.
@@ -47,8 +48,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--lookat", type=float, nargs=3, default=None)
     p.add_argument("--fov", type=float, default=60.0)
-    p.add_argument("--procedural", choices=["cornell"], default=None,
-                   help="use the procedural Cornell box instead of a file")
+    p.add_argument("--procedural", choices=["cornell", "city"], default=None,
+                   help="use a procedural scene instead of a file")
+    p.add_argument("--city-grid", type=int, default=None, metavar="N",
+                   help="procedural city size (96 = 143,568 triangles, the "
+                        "benchmark suite's city; default 16)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs the kernels' plain versions")
     p.add_argument("--out", default="out.png")
@@ -84,6 +88,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     if args.procedural == "cornell":
         scene = scene_mod.make_cornell_box(device=device)
+    elif args.procedural == "city":
+        scene = (scene_mod.make_city(grid=args.city_grid, device=device)
+                 if args.city_grid else scene_mod.make_city(device=device))
     else:
         path = resolve_scene_path(cfg)
         if os.path.exists(path):

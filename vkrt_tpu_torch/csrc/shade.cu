@@ -13,8 +13,9 @@
 // What bounds it on this card: memory traffic. Per lane it reads 14 carry
 // + 1 seed + 7 ray + 4 hit (+1 shadow verdict) words and writes 14 + 1 +
 // 7 + 7 words, about 220 bytes, plus gathers into small tables that stay
-// in L1/L2; the ~300 FP32 operations and 4 sin/cos per lane are well under
-// the FP32 rate at that byte count. The design keeps every access
+// in L1/L2 (the albedo instantiation: 24 B of corner uv and four 16-byte
+// texels more a hit lane); the ~300 FP32 operations and 4 sin/cos per lane
+// are well under the FP32 rate at that byte count. The design keeps every access
 // coalesced, computes both lobes branch-free (as the TPU kernel does) so a
 // warp never diverges on the lobe pick, and keeps the LCG in uint32.
 //
@@ -22,6 +23,18 @@
 // 1664525*s + 1013904223 mod 2^32 with u = (s & 0xFFFFFF) * 2^-24, the
 // draw order and the separate diffuse/specular streams are kept, and every
 // pl.reciprocal(x) of the TPU kernel is 1.0f / x here (IEEE, no fast math).
+//
+// Two instantiations. shade_kernel<false> shades untextured scenes.
+// shade_kernel<true> is the TPU kernel's albedo mode for scenes whose only
+// texture is baseColor (shade.py:191, 200-205, 302-307): there the albedo
+// block was fetched outside the kernel (xla_albedo_block), because Mosaic
+// has no per-lane gathers; here a hit lane fetches it itself: the delta-form
+// uv of the winner's corners, the material's baseColor texture, four float4
+// texel reads of level 0 with REPEAT wrap and GL_LINEAR weights, multiplied
+// into the base colour before the BSDF. Miss lanes fetch nothing, texture
+// index -1 is white. The uv and the bilinear weights are computed with
+// __fmul_rn / __fadd_rn in ops/texture.py's order, so no multiply-add is
+// contracted: a contracted u*w - 0.5 can move floor() across a texel edge.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +89,55 @@ struct Params {
       clamp_hi;
 };
 
+// The tables of the albedo fetch (read by shade_kernel<true> only).
+struct Albedo {
+  const float* corner_uv;   // (T, 3, 2)
+  const int* mat_base_tex;  // (M,), -1 = none
+  const float4* tex;        // (K, TH, TW) texels, level 0, f32 RGBA
+  const int* tex_size;      // (K, 2) each image's own (w, h)
+  int th, tw;               // the padded image size
+};
+
+// floor modulo for b > 0 (jnp.mod): -1 wraps to b - 1
+__device__ __forceinline__ int fmod_floor(int a, int b) {
+  const int r = a % b;
+  return r < 0 ? r + b : r;
+}
+
+// ops/texture.py::sample_texture at one lane, rgb only (-1: white)
+__device__ __forceinline__ V3 fetch_albedo(const Albedo& a, int mat, float u,
+                                           float v, const float* cu) {
+  const int k = a.mat_base_tex[mat];
+  if (k < 0) return {1.f, 1.f, 1.f};
+  // uv = a0 + u*(a1-a0) + v*(a2-a0), uncontracted
+  const float uu = __fadd_rn(__fadd_rn(cu[0], __fmul_rn(u, __fsub_rn(cu[2], cu[0]))),
+                             __fmul_rn(v, __fsub_rn(cu[4], cu[0])));
+  const float vv = __fadd_rn(__fadd_rn(cu[1], __fmul_rn(u, __fsub_rn(cu[3], cu[1]))),
+                             __fmul_rn(v, __fsub_rn(cu[5], cu[1])));
+  const int w = a.tex_size[2 * k], h = a.tex_size[2 * k + 1];
+  const float fx = __fsub_rn(__fmul_rn(__fsub_rn(uu, floorf(uu)), (float)w), 0.5f);
+  const float fy = __fsub_rn(__fmul_rn(__fsub_rn(vv, floorf(vv)), (float)h), 0.5f);
+  const float x0 = floorf(fx), y0 = floorf(fy);
+  const float ax = __fsub_rn(fx, x0), ay = __fsub_rn(fy, y0);
+  const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
+  const int xi = (int)x0, yi = (int)y0;
+  const int xa = fmod_floor(xi, w), xb = fmod_floor(xi + 1, w);
+  const int64_t row = (int64_t)k * a.th;
+  const int64_t ra = (row + fmod_floor(yi, h)) * a.tw,
+                rb = (row + fmod_floor(yi + 1, h)) * a.tw;
+  const float4 c00 = a.tex[ra + xa], c10 = a.tex[ra + xb], c01 = a.tex[rb + xa],
+               c11 = a.tex[rb + xb];
+  auto mix4 = [&](float p00, float p10, float p01, float p11) {
+    return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(p00, bx), by),
+                                         __fmul_rn(__fmul_rn(p10, ax), by)),
+                               __fmul_rn(__fmul_rn(p01, bx), ay)),
+                     __fmul_rn(__fmul_rn(p11, ax), ay));
+  };
+  return {mix4(c00.x, c10.x, c01.x, c11.x), mix4(c00.y, c10.y, c01.y, c11.y),
+          mix4(c00.z, c10.z, c01.z, c11.z)};
+}
+
+template <bool kAlbedo>
 __global__ void __launch_bounds__(kThreads)
 shade_kernel(const float* __restrict__ carry, const int* __restrict__ seed_in,
              const float* __restrict__ rays, const float* __restrict__ hit_t,
@@ -85,7 +147,7 @@ shade_kernel(const float* __restrict__ carry, const int* __restrict__ seed_in,
              const float* __restrict__ corner_tangent,
              const int* __restrict__ tri_mat, const float* __restrict__ mat_tab,
              const float* __restrict__ light_tab,
-             const float* __restrict__ corr_tab, Params p,
+             const float* __restrict__ corr_tab, Albedo alb, Params p,
              float* __restrict__ carry_out, int* __restrict__ seed_out,
              float* __restrict__ next_rays, float* __restrict__ shadow_rays) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -126,11 +188,17 @@ shade_kernel(const float* __restrict__ carry, const int* __restrict__ seed_in,
   const bool is_hit = tri >= 0;
   const bool miss = (!is_hit && active) || !active;
   const float t_hit = hit_t[i];
-  const V3 pos = {col(rays, 0) + t_hit * dir.x, col(rays, 1) + t_hit * dir.y,
-                  col(rays, 2) + t_hit * dir.z};
+  // o + t*d uncontracted, as the plain version rounds it: a hit on a plane
+  // through the origin from a far camera (the city's ground, y = 0, from
+  // 300 away) cancels there, and a fused multiply-add moves the result by
+  // ulps of the camera height
+  const V3 pos = {__fadd_rn(col(rays, 0), __fmul_rn(t_hit, dir.x)),
+                  __fadd_rn(col(rays, 1), __fmul_rn(t_hit, dir.y)),
+                  __fadd_rn(col(rays, 2), __fmul_rn(t_hit, dir.z))};
 
   // --- the winner's corner attributes (zero on miss lanes) ------------------
   V3 nrm = {0.f, 0.f, 0.f}, tan = {0.f, 0.f, 0.f};
+  V3 albedo = {1.f, 1.f, 1.f};
   float tw = 0.f;
   int mat = 0;
   if (is_hit) {
@@ -145,6 +213,7 @@ shade_kernel(const float* __restrict__ carry, const int* __restrict__ seed_in,
     tan.z = ct[2] + u * (ct[6] - ct[2]) + v * (ct[10] - ct[2]);
     tw = ct[3];
     mat = tri_mat[tri];
+    if (kAlbedo) albedo = fetch_albedo(alb, mat, u, v, alb.corner_uv + 6 * (int64_t)tri);
   }
 
   // --- surface frame ----------------------------------------------------------
@@ -157,8 +226,13 @@ shade_kernel(const float* __restrict__ carry, const int* __restrict__ seed_in,
 
   // --- material by index -------------------------------------------------------
   const float* mt = mat_tab + 8 * (int64_t)mat;
-  const float baser = mt[0], baseg = mt[1], baseb = mt[2], metal = mt[3],
-              rough = mt[4], emr = mt[5], emg = mt[6], emb = mt[7];
+  float baser = mt[0], baseg = mt[1], baseb = mt[2];
+  const float metal = mt[3], rough = mt[4], emr = mt[5], emg = mt[6], emb = mt[7];
+  if (kAlbedo) {  // base_color = base_factor * fetch(base_tex)
+    baser = baser * albedo.x;
+    baseg = baseg * albedo.y;
+    baseb = baseb * albedo.z;
+  }
 
   // --- sample_bsdf -----------------------------------------------------------
   const V3 vv = normalize3({-dir.x, -dir.y, -dir.z});
@@ -371,7 +445,9 @@ extern "C" int vkrt_shade(
     const void* hit_tri, const void* hit_u, const void* hit_v,
     const void* sh_tri, const void* corner_normal, const void* corner_tangent,
     const void* tri_mat, const void* mat_tab, const void* light_tab,
-    int n_lights, const void* corr_tab, int n, int d,
+    int n_lights, const void* corr_tab, const void* corner_uv,
+    const void* mat_base_tex, const void* tex_rgba, const void* tex_size,
+    int tex_h, int tex_w, int n, int d,
     int first, int resolve_hd, float hitdist_weight, int hitdist_accumulate,
     float t_min, float t_max, float clear_r, float clear_g, float clear_b,
     float clamp_lo, float clamp_hi, void* carry_out, void* seed_out,
@@ -393,15 +469,34 @@ extern "C" int vkrt_shade(
     p.clear_b = clear_b;
     p.clamp_lo = clamp_lo;
     p.clamp_hi = clamp_hi;
+    const Albedo alb = {(const float*)corner_uv, (const int*)mat_base_tex,
+                        (const float4*)tex_rgba, (const int*)tex_size, tex_h,
+                        tex_w};
     const int blocks = (n + kThreads - 1) / kThreads;
-    shade_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    auto kernel = tex_rgba ? &shade_kernel<true> : &shade_kernel<false>;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const float*)carry, (const int*)seed, (const float*)rays,
         (const float*)hit_t, (const int*)hit_tri, (const float*)hit_u,
         (const float*)hit_v, (const int*)sh_tri, (const float*)corner_normal,
         (const float*)corner_tangent, (const int*)tri_mat,
         (const float*)mat_tab, (const float*)light_tab,
-        (const float*)corr_tab, p, (float*)carry_out, (int*)seed_out,
+        (const float*)corr_tab, alb, p, (float*)carry_out, (int*)seed_out,
         (float*)next_rays, (float*)shadow_rays);
   }
   return (int)cudaGetLastError();
+}
+
+// What the compiler made of one instantiation of kernel B (albedo 0 or 1):
+// registers a thread, static shared bytes a block, local bytes a thread,
+// and the blocks of kThreads an SM holds at once.
+extern "C" int vkrt_shade_info(int albedo, int* info) {
+  cudaFuncAttributes attr;
+  auto kernel = albedo ? &shade_kernel<true> : &shade_kernel<false>;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  info[0] = attr.numRegs;
+  info[1] = (int)attr.sharedSizeBytes;
+  info[2] = (int)attr.localSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[3], kernel,
+                                                            kThreads, 0);
 }

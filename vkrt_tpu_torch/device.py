@@ -57,11 +57,16 @@ _SIGNATURES = {
         _P, _P, _P,          # corner_normal, corner_tangent, tri_mat
         _P, _P, _I,          # material table, light table, n_lights
         _P,                  # corr table (G, 8) or null
+        _P, _P, _P, _P,      # albedo: corner_uv, mat_base_tex, tex_rgba, tex_size (null: off)
+        _I, _I,              # texture height, width (padded)
         _I, _I, _I, _I,      # n, d, first, resolve_hd
         _F, _I, _F, _F,      # hitdist weight, accumulate, t_min, t_max
         _F, _F, _F, _F, _F,  # clear rgb, clamp lo, clamp hi
         _P, _P, _P, _P,      # out carry, seed, next rays, shadow rays
         _P,                  # stream
+    ],
+    "vkrt_shade_info": [     # albedo 0/1; out: registers, shared, local, blocks per SM
+        _I, ctypes.POINTER(_I),
     ],
     "vkrt_floor": [
         _P, _L, _L,          # o, stride lane, stride component
@@ -207,6 +212,14 @@ def variant_info(variant: int) -> dict:
     ``ops/cuda/trace_variants.py::INSTANTIATIONS``)."""
     out = (_I * 4)()
     check("vkrt_trace_variant_info", kernels().vkrt_trace_variant_info(variant, out))
+    return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm"), out))
+
+
+def shade_info(albedo: bool) -> dict:
+    """``trace_info`` of one instantiation of kernel B
+    (``vkrt_shade_info``): untextured or albedo."""
+    out = (_I * 4)()
+    check("vkrt_shade_info", kernels().vkrt_shade_info(int(albedo), out))
     return dict(zip(("registers", "shared_bytes", "local_bytes", "blocks_per_sm"), out))
 
 

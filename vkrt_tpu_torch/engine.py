@@ -1,5 +1,7 @@
 """Engine: frame orchestration, progressive accumulation, invalidation
-(port of ``vkrt_tpu/engine.py``, path mode).
+(port of ``vkrt_tpu/engine.py``, path mode, any opaque scene: untextured
+and baseColor-only scenes through kernels A and B, other textured scenes
+through kernel A and the general shading loop).
 
 Owns the scene, tracer, camera state, accumulation buffer and frame
 counter, and exposes ``render_frame()``. The reset rules:
@@ -29,10 +31,20 @@ from vkrt_tpu_torch.models import post as post_mod
 from vkrt_tpu_torch.models.pathtracer import pathtrace_frame
 from vkrt_tpu_torch.ops.rng import tea
 from vkrt_tpu_torch.ops.trace import make_tracer
-from vkrt_tpu_torch.scene import SceneTensors, require_untextured
+from vkrt_tpu_torch.scene import SceneTensors
 from vkrt_tpu_torch.utils.camera import Camera, pixel_coords, tile_perm, untile
 
 HYBRID_ERROR = "hybrid mode is ported in a later PR"
+ALPHA_ERROR = "alpha test is ported in a later PR"
+
+
+def _check_settings(settings: RenderSettings) -> None:
+    """Refuse what the port does not render yet, rather than render
+    something else without a word."""
+    if settings.rt_mode != 1:
+        raise NotImplementedError(HYBRID_ERROR)
+    if settings.alpha_test:
+        raise NotImplementedError(ALPHA_ERROR)
 
 
 class Engine:
@@ -45,9 +57,7 @@ class Engine:
         camera: Camera = Camera(),
         clear_color=DEFAULT_CLEAR_COLOR,
     ):
-        if settings.rt_mode != 1:
-            raise NotImplementedError(HYBRID_ERROR)
-        require_untextured(scene)
+        _check_settings(settings)
         self.scene = scene
         self.device = scene.device
         self.width = width
@@ -94,8 +104,7 @@ class Engine:
     def update_settings(self, settings: RenderSettings):
         if settings == self.settings:
             return
-        if settings.rt_mode != 1:
-            raise NotImplementedError(HYBRID_ERROR)
+        _check_settings(settings)
         if settings.backend != self.settings.backend:
             self.tracer = make_tracer(self.scene, settings.backend)
         self.settings = settings

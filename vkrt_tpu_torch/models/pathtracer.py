@@ -5,9 +5,12 @@ A frame: for every pixel, ``samples`` paths of up to ``depth`` bounces with
 NEE shadow rays, keeping the reference's estimator quirks (firefly clamp,
 blocked-shadow skip, clear*0.8 / 0.01 miss radiance, frame-0 centre
 jitter with both draws still advanced, progressive ``mix`` accumulation).
-The bounce loop is always the packed loop of ``ops/cuda/shade.py``: on a
-CUDA device both of its stages are the hand-written kernels, on the CPU
-their plain versions.
+Two bounce loops. Scenes that kernel B shades (untextured, or baseColor
+the only texture) take the packed loop of ``ops/cuda/shade.py``: on a CUDA
+device both of its stages are the hand-written kernels, on the CPU their
+plain versions. Other textured scenes take the general loop here: kernel A
+traces (brute force on the CPU), and ``models/shading.py`` shades in
+PyTorch, as the JAX package shades them in XLA.
 """
 
 from __future__ import annotations
@@ -16,10 +19,10 @@ from typing import NamedTuple
 
 import torch
 
-from vkrt_tpu_torch.ops.cuda.shade import bounce_chain_packed
+from vkrt_tpu_torch.models.shading import clamp_bounds, sample_bsdf, surface_at_hit
+from vkrt_tpu_torch.ops.cuda.shade import bounce_chain_packed, kernel_shading_available
 from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-from vkrt_tpu_torch.ops.rng import MASK32, rnd, seed_pixels
-from vkrt_tpu_torch.scene import require_untextured
+from vkrt_tpu_torch.ops.rng import MASK32, corr_draws, rnd, seed_pixels
 from vkrt_tpu_torch.utils.camera import generate_rays
 
 
@@ -43,16 +46,122 @@ def bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
                  corr_seed=None) -> BounceCarry:
     """Run the bounce loop (rgen:62-116). ``corr_seed``: uint32 enabling
     the correlated per-block sampler, None for independent per-lane
-    draws. Always the packed loop (``ops.cuda.shade.bounce_chain_packed``)."""
+    draws. The packed loop (``ops.cuda.shade.bounce_chain_packed``) where
+    kernel B shades the scene, else ``general_bounce_chain``; both serve
+    any depth."""
     if depth <= start_depth:
         return carry
-    return bounce_chain_packed(
+    loop = bounce_chain_packed if kernel_shading_available(scene) else general_bounce_chain
+    return loop(
         scene, tracer, carry,
         depth=depth, start_depth=start_depth, clear_color=clear_color,
         hitdist_weight=hitdist_weight, hitdist_accumulate=hitdist_accumulate,
         clamp_weights=clamp_weights, t_min=T_MIN, t_max=T_MAX,
         corr_seed=corr_seed,
     )
+
+
+def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
+                         start_depth: int, clear_color, hitdist_weight: float,
+                         hitdist_accumulate: bool, clamp_weights=False,
+                         t_min: float = T_MIN, t_max: float = T_MAX,
+                         corr_seed=None) -> BounceCarry:
+    """The bounce loop of ``vkrt_tpu/models/pathtracer.py::bounce_chain``
+    (its XLA body, rgen:62-116) for any scene: per bounce ``surface_at_hit``
+    and ``sample_bsdf``, then one fused trace of 2N rays, the next bounce's
+    main rays and this bounce's shadow rays, whose lanes carry negative
+    limits (kernel A's first-hit-kills lanes: only the verdict is read);
+    the last bounce traces its shadow rays alone (``any``). Dead lanes get
+    a degenerate ray (origin 1e30, d = 0, limit -1).
+
+    The ray counters count as the JAX loop does. Its deep-bounce form
+    (depth - start_depth > 8) traces the fused pool on the last bounce too
+    and then takes that bounce's dangling main rays off the count again;
+    this loop does not trace them, which gives the same count for any
+    depth."""
+    n = carry.origin.shape[0]
+    lo, hi = clamp_bounds(clamp_weights)
+    clear3 = torch.tensor([float(c) for c in clear_color[:3]], dtype=torch.float32,
+                          device=carry.origin.device)
+
+    def closest(o, d, lim):
+        return tracer.closest(o, d, t_min, t_max, t_lim=lim)
+
+    def live(c, x, dead):
+        return torch.where(c.active[:, None], x, dead)
+
+    hi_cur = closest(live(carry, carry.origin, 1e30), live(carry, carry.direction, 0.0),
+                     torch.where(carry.active, t_max, -1.0))
+    c = carry._replace(rays_main=carry.rays_main + carry.active.float().sum())
+    for d in range(start_depth, depth):
+        trace_next = d < depth - 1
+        miss = (~hi_cur.hit & c.active) | ~c.active
+        surf = surface_at_hit(scene, torch.clamp_min(hi_cur.tri, 0), hi_cur.u, hi_cur.v,
+                              c.direction)
+        emit_gate = torch.ones_like(c.is_specular) if d == 0 else c.is_specular  # rchit:83
+        corr = None if corr_seed is None else corr_draws(n, corr_seed, d,
+                                                         device=c.origin.device)
+        bs = sample_bsdf(scene, surf, c.direction, c.seed, emit_gate, corr=corr)
+
+        # rmiss (raytrace.rmiss:11-19)
+        miss_value = clear3 * 0.8 if d == 0 else torch.full_like(clear3, 0.01)
+        hit_value_this = torch.where(miss[:, None], miss_value, bs.emit_plus_nee)
+        is_spec_this = torch.where(miss, c.is_specular, bs.is_specular)
+        light_dist_this = torch.where(miss, c.light_dist, bs.light_dist)
+
+        # shadow ray (rgen:77-97): diffuse hits only; the others get d = 0
+        # and limit 0, so they never hit
+        do_shadow = c.active & ~miss & ~is_spec_this
+        sh_dir = torch.where(do_shadow[:, None], bs.shadow_dir, 0.0)
+        sh_lim = torch.where(do_shadow, -torch.clamp_min(light_dist_this - 0.1, t_min), 0.0)
+        active_next = c.active & ~miss
+
+        if trace_next:
+            nx_o = torch.where(active_next[:, None], surf.world_pos, 1e30)
+            nx_d = torch.where(active_next[:, None], bs.next_dir, 0.0)
+            nx_lim = torch.where(active_next, t_max, -1.0)
+            res = closest(torch.cat([nx_o, surf.world_pos]), torch.cat([nx_d, sh_dir]),
+                          torch.cat([nx_lim, sh_lim]))
+            hi_next = type(res)(*(x[:n] for x in res))
+            shadow_hit = res.hit[n:]
+        else:
+            shadow_hit = tracer.any(surf.world_pos, sh_dir, t_min, sh_lim)
+            hi_next = hi_cur
+        shadow_hit = shadow_hit & do_shadow
+
+        contrib = torch.clamp_max(hit_value_this * c.cur_weight, 10.0)  # rgen:101
+        add = (c.active & ~shadow_hit)[:, None]
+        hit_value = c.hit_value + torch.where(add, contrib, 0.0)
+
+        # hit-distance bookkeeping at depth 1 for diffuse hits (rgen:103-114);
+        # miss lanes never run it (rmiss sets prd.depth = 100)
+        at_d1 = (d == 1) & ~is_spec_this & c.active & ~miss
+        hd_new = torch.where(shadow_hit, 0.5 * light_dist_this, light_dist_this)
+        hd_new = hd_new * hitdist_weight
+        if hitdist_accumulate:
+            hit_dists = torch.where(at_d1, c.hit_dists + hd_new, c.hit_dists)
+        else:
+            hit_dists = torch.where(at_d1, hd_new, c.hit_dists)
+
+        step_weight = torch.clamp_max(torch.clamp_min(bs.weight, lo), hi)
+        # a miss lane keeps its weight (it leaves the loop; 0*inf would NaN)
+        cur_weight = c.cur_weight * torch.where(miss[:, None], 1.0, step_weight)
+
+        c = BounceCarry(
+            origin=torch.where(miss[:, None], c.origin, surf.world_pos),
+            direction=torch.where(miss[:, None], c.direction, bs.next_dir),
+            seed=torch.where(miss, c.seed, bs.seed),
+            cur_weight=cur_weight,
+            hit_value=hit_value,
+            active=active_next,
+            is_specular=is_spec_this,
+            light_dist=light_dist_this,
+            hit_dists=hit_dists,
+            rays_main=c.rays_main + (active_next.float().sum() if trace_next else 0.0),
+            rays_shadow=c.rays_shadow + do_shadow.float().sum(),
+        )
+        hi_cur = hi_next
+    return c
 
 
 class PathTraceResult(NamedTuple):
@@ -135,9 +244,7 @@ def pathtrace_frame(scene, tracer, cam, frame: int, accum, clear_color, *,
                     seeds=None):
     """One path-traced frame + accumulation (hello_vulkan.cpp:1423-1448).
     ``accum``: (H*W, 3) running image in the pixel order of ``pix``.
-    Returns (new_accum, rays). Raises on a textured scene (textures are not
-    sampled yet; the answer is decided once per scene, no sync a frame)."""
-    require_untextured(scene)
+    Returns (new_accum, rays)."""
     res = trace_pixels(
         scene, tracer, cam, width, height, frame, clear_color,
         samples=samples, depth=depth, clamp_weights=clamp_weights,

@@ -18,6 +18,13 @@ TPU kernel read a resolve block interpolated inside the trace kernel; here
 the shade kernel gathers the winner's corner attributes by triangle id, and
 looks materials and lights up by index, with no table-size caps.
 
+With ``ShadeParams.albedo`` (scenes whose only texture is baseColor) a hit
+lane also fetches its base-colour texel itself, bilinear at level 0 of
+``tex_rgba`` at the delta-form uv of the winner's corners, and multiplies
+it into the material's base colour: the TPU kernel's albedo mode, whose
+block ``xla_albedo_block`` fetched outside the kernel. Scenes with other
+textures are not shaded here (``kernel_shading_available``).
+
 ``shade_plain`` is the kernel's plain version: the same math over (N,)
 tensors in the kernel's operation order. ``shade`` is the wrapper: on CUDA
 tensors it launches the kernel (or raises); on CPU tensors it runs
@@ -26,16 +33,17 @@ tensors it launches the kernel (or raises); on CPU tensors it runs
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from vkrt_tpu_torch import device as dev
+from vkrt_tpu_torch.models.shading import clamp_bounds
 from vkrt_tpu_torch.ops.rng import CORR_BLOCK, block_table_rep, rnd
+from vkrt_tpu_torch.ops.texture import sample_texture
 from vkrt_tpu_torch.ops.trace import interp_corners
-from vkrt_tpu_torch.scene import SceneTensors
+from vkrt_tpu_torch.scene import SceneTensors, scene_base_only_textured, scene_is_textured
 
 M_PI = 3.14159265358979323846
 M_TWO_PI = 2.0 * M_PI
@@ -71,6 +79,7 @@ class ShadeParams(NamedTuple):
     clear: tuple        # clear color rgb
     clamp_lo: float
     clamp_hi: float
+    albedo: bool = False  # fetch the baseColor texture (baseColor-only scenes)
 
 
 class ShadeOut(NamedTuple):
@@ -80,10 +89,12 @@ class ShadeOut(NamedTuple):
     shadow_rays: torch.Tensor  # (7, N) f32
 
 
-def clamp_bounds(clamp_weights: bool):
-    """RenderSettings.clamp_weights -> (lo, hi) path-throughput clamp:
-    [0, 50] on, [-inf, +inf] (the identity) off."""
-    return (0.0, 50.0) if clamp_weights else (-math.inf, math.inf)
+def kernel_shading_available(scene: SceneTensors) -> bool:
+    """Can kernel B shade this scene? Untextured scenes, and scenes whose
+    only texture is baseColor (the albedo instantiation). The JAX gate's
+    table caps and tracer test exist for the Pallas kernels and are not
+    ported."""
+    return not scene_is_textured(scene) or scene_base_only_textured(scene)
 
 
 def scene_tables(scene: SceneTensors):
@@ -188,6 +199,10 @@ def shade_plain(carry, seed, rays, hit, sh_tri, scene: SceneTensors,
     tan = torch.where(is_hit[:, None], tan, 0.0)
     tw = torch.where(is_hit, scene.corner_tangent[safe, 0, 3], 0.0)
     mat = torch.where(is_hit, scene.tri_mat[safe], 0).long()
+    if p.albedo:  # hit lanes fetch the baseColor texel; miss lanes stay white
+        uv = interp_corners(scene.corner_uv, safe, hu, hv)
+        rgba = sample_texture(scene.tex_rgba, scene.tex_size, scene.mat_base_tex[mat], uv)
+        albedo = torch.where(is_hit[:, None], rgba[:, :3], 1.0)
 
     # --- surface frame -------------------------------------------------------
     nx, ny, nz = _normalize3(nrm[:, 0], nrm[:, 1], nrm[:, 2])
@@ -200,6 +215,8 @@ def shade_plain(carry, seed, rays, hit, sh_tri, scene: SceneTensors,
     # --- material by index -------------------------------------------------
     m = mat_tab[mat]
     baser, baseg, baseb, metal, rough, emr, emg, emb = m.unbind(1)
+    if p.albedo:  # base_color = base_factor * fetch(base_tex)
+        baser, baseg, baseb = baser * albedo[:, 0], baseg * albedo[:, 1], baseb * albedo[:, 2]
 
     # --- sample_bsdf ---------------------------------------------------------
     vx, vy, vz = _normalize3(-dx, -dy, -dz)
@@ -440,6 +457,14 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
     if corr_tab is not None:
         want.append(("corr_tab", corr_tab, torch.float32,
                      (-(-n // CORR_BLOCK), 8)))
+    k_tex, tex_h, tex_w = scene.tex_rgba.shape[:3]
+    if p.albedo:
+        want += [
+            ("corner_uv", scene.corner_uv, torch.float32, (n_tris, 3, 2)),
+            ("mat_base_tex", scene.mat_base_tex, torch.int32, (mat_tab.shape[0],)),
+            ("tex_rgba", scene.tex_rgba, torch.float32, (k_tex, tex_h, tex_w, 4)),
+            ("tex_size", scene.tex_size, torch.int32, (k_tex, 2)),
+        ]
     for name, t, dt, shape in want:
         if t.dtype != dt or tuple(t.shape) != shape:
             raise ValueError(f"shade: {name} is {t.dtype} {tuple(t.shape)}, "
@@ -462,6 +487,10 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
         scene.tri_mat.data_ptr(),
         mat_tab.data_ptr(), light_tab.data_ptr(), light_tab.shape[0],
         None if corr_tab is None else corr_tab.data_ptr(),
+        *((scene.corner_uv.data_ptr(), scene.mat_base_tex.data_ptr(),
+           scene.tex_rgba.data_ptr(), scene.tex_size.data_ptr()) if p.albedo
+          else (None,) * 4),
+        tex_h, tex_w,
         n, p.d, int(p.first), int(p.resolve_hd),
         p.hitdist_weight, int(p.hitdist_accumulate), p.t_min, p.t_max,
         *(float(c) for c in p.clear), p.clamp_lo, p.clamp_hi,
@@ -471,10 +500,12 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
     )
     dev.check("vkrt_shade", err)
     shade.launches += 1
+    shade.albedo_launches += int(p.albedo)
     return out
 
 
-shade.launches = 0
+shade.launches = 0         # every launch of kernel B
+shade.albedo_launches = 0  # those of its albedo instantiation
 
 
 # --- the bounce loop -------------------------------------------------------------
@@ -507,6 +538,7 @@ def bounce_chain_packed(
     mat_tab, light_tab = scene_tables(scene)
     lo, hi = clamp_bounds(clamp_weights)
     clear = tuple(float(c) for c in clear_color[:3])
+    albedo = scene_base_only_textured(scene)
 
     active0 = carry.active
     rays_main = carry.rays_main + active0.float().sum()
@@ -542,7 +574,7 @@ def bounce_chain_packed(
             hitdist_weight=float(hitdist_weight),
             hitdist_accumulate=bool(hitdist_accumulate),
             t_min=float(t_min), t_max=float(t_max), clear=clear,
-            clamp_lo=lo, clamp_hi=hi,
+            clamp_lo=lo, clamp_hi=hi, albedo=albedo,
         )
         carry_blk, seed, next_rays, shadow_rays = shade(
             carry_blk, seed, ray_cur, hit, sh_tri, scene, mat_tab, light_tab,

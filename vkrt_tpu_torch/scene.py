@@ -2,9 +2,9 @@
 
 The numpy baking of the JAX package is kept line for line, so both packages
 build equal arrays from one glTF document or triangle soup, textured scenes
-and their bf16 mip atlas included. Shading a textured scene comes with a
-later slice: ``Engine`` and ``pathtrace_frame`` refuse one with
-``TEXTURED_ERROR``, so such a scene is never rendered without its textures.
+and their bf16 mip atlas included. Which texture slots a scene uses is
+decided once, from the host arrays (``tex_slots_used``), so the shading
+paths pick their branches without reading the device back every frame.
 
 Every constructor takes ``device``: ``None`` means the card
 (``device.select()``, which raises without one); the CPU tests pass
@@ -22,10 +22,10 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from vkrt_tpu_torch.config import EngineConfig, resolve_scene_path
 from vkrt_tpu_torch.device import select
+from vkrt_tpu_torch.ops.texture import pack_mip_atlas, srgb_to_linear
 from vkrt_tpu_torch.utils import gltf as gltf_mod
 
 TRI_PAD = 64  # pad triangle count to a lane-friendly multiple
-TEXTURED_ERROR = "shading textured scenes is ported in a later slice"
 
 
 class SceneTensors(NamedTuple):
@@ -88,17 +88,9 @@ FALLBACK_LIGHTS = [
 ]
 
 _TEX_SLOTS = ("mat_base_tex", "mat_mr_tex", "mat_normal_tex", "mat_emissive_tex")
-# whether a scene is textured, decided once: keyed by its mat_base_tex
+# which texture slots a scene uses, decided once: keyed by its mat_base_tex
 # tensor, the value holds the other three slot tensors and the answer
-_TEXTURED = WeakIdKeyDictionary()
-
-
-def srgb_to_linear(c: np.ndarray) -> np.ndarray:
-    """Piecewise sRGB EOTF (what R8G8B8A8_SRGB sampling does in hardware)."""
-    c = np.asarray(c, np.float32)
-    return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4).astype(
-        np.float32
-    )
+_SLOTS_USED = WeakIdKeyDictionary()
 
 
 def _flat_normals(v0, v1, v2):
@@ -194,56 +186,8 @@ def _uv_density(v0, v1, v2, cuv):
     ).astype(np.float32)
 
 
-def build_mip_pyramid(image: np.ndarray):
-    """Full mip chain by 2x2 box filter (hello_vulkan.cpp:499)."""
-    levels = [np.asarray(image, np.float32)]
-    cur = levels[0]
-    while max(cur.shape[0], cur.shape[1]) > 1:
-        nxt = cur
-        if nxt.shape[0] > 1:
-            h = nxt.shape[0] // 2
-            nxt = 0.5 * (nxt[0 : 2 * h : 2] + nxt[1 : 2 * h : 2])
-        if nxt.shape[1] > 1:
-            w = nxt.shape[1] // 2
-            nxt = 0.5 * (nxt[:, 0 : 2 * w : 2] + nxt[:, 1 : 2 * w : 2])
-        levels.append(nxt.astype(np.float32))
-        cur = nxt
-    return levels
-
-
-def pack_mip_atlas(images, srgb_flags=None):
-    """Per-image mip pyramids side by side in one (K, TH, 2*TW, 4) atlas
-    (vkrt_tpu/ops/texture.py). Returns (atlas, level_size, level_off,
-    n_levels)."""
-    k = len(images)
-    th = max(im.shape[0] for im in images)
-    tw = max(im.shape[1] for im in images)
-    lmax = max(1, int(np.ceil(np.log2(max(th, tw)))) + 1)
-    atlas = np.zeros((k, th, 2 * tw, 4), np.float32)
-    level_size = np.zeros((k, lmax, 2), np.int32)
-    level_off = np.zeros((k, lmax), np.int32)
-    n_levels = np.zeros(k, np.int32)
-    for i, im in enumerate(images):
-        f = im.astype(np.float32) / 255.0
-        if srgb_flags is not None and srgb_flags[i]:
-            f = np.concatenate([srgb_to_linear(f[..., :3]), f[..., 3:]], axis=-1)
-        levels = build_mip_pyramid(f)
-        n_levels[i] = len(levels)
-        x = 0
-        for lv, lev in enumerate(levels[:lmax]):
-            h, w = lev.shape[:2]
-            atlas[i, :h, x : x + w] = lev
-            level_size[i, lv] = (w, h)
-            level_off[i, lv] = x
-            x += w
-        for lv in range(len(levels), lmax):
-            level_size[i, lv] = level_size[i, len(levels) - 1]
-            level_off[i, lv] = level_off[i, len(levels) - 1]
-    return atlas, level_size, level_off, n_levels
-
-
-def _textured(arrays: dict) -> bool:
-    return any((np.asarray(arrays[k]) >= 0).any() for k in _TEX_SLOTS)
+def _slots_used(arrays: dict) -> dict:
+    return {k: bool((np.asarray(arrays[k]) >= 0).any()) for k in _TEX_SLOTS}
 
 
 def _device(device) -> torch.device:
@@ -264,7 +208,7 @@ def scene_from_numpy(d: dict, device=None) -> SceneTensors:
     device = _device(device)
     scene = SceneTensors(**{k: _to_tensor(d[k], device) for k in SceneTensors._fields})
     slots = [getattr(scene, k) for k in _TEX_SLOTS]
-    _TEXTURED[slots[0]] = (slots[1:], _textured(d))  # from the host arrays
+    _SLOTS_USED[slots[0]] = (slots[1:], _slots_used(d))  # from the host arrays
     return scene
 
 
@@ -382,32 +326,31 @@ def load_scene(path: str, device=None) -> SceneTensors:
     return build_scene(gltf_mod.parse_gltf(path), device=device)
 
 
-def scene_is_textured(scene: SceneTensors) -> bool:
-    """True if any material references a texture. Decided once per set of
-    texture-slot columns: ``scene_from_numpy`` records it from the host
-    arrays; a scene assembled otherwise reads its four (M,) columns back
-    once."""
+def tex_slots_used(scene: SceneTensors) -> dict:
+    """{slot name: whether any material references a texture there}, for
+    the four slots ``mat_base_tex``, ``mat_mr_tex``, ``mat_normal_tex`` and
+    ``mat_emissive_tex`` (``vkrt_tpu/scene.py::_tex_slot_used`` of each).
+    Decided once per set of slot columns: ``scene_from_numpy`` records it
+    from the host arrays; a scene assembled otherwise reads its four (M,)
+    columns back once."""
     slots = [getattr(scene, k) for k in _TEX_SLOTS]
-    known = _TEXTURED.get(slots[0])
+    known = _SLOTS_USED.get(slots[0])
     if known is None or any(a is not b for a, b in zip(known[0], slots[1:])):
-        known = (slots[1:], _textured({k: t.cpu().numpy() for k, t in zip(_TEX_SLOTS, slots)}))
-        _TEXTURED[slots[0]] = known
+        known = (slots[1:], _slots_used({k: t.cpu().numpy() for k, t in zip(_TEX_SLOTS, slots)}))
+        _SLOTS_USED[slots[0]] = known
     return known[1]
 
 
-def require_untextured(scene: SceneTensors) -> None:
-    """Raise ``NotImplementedError(TEXTURED_ERROR)`` on a textured scene:
-    the shading entry points do not sample textures yet."""
-    if scene_is_textured(scene):
-        raise NotImplementedError(TEXTURED_ERROR)
+def scene_is_textured(scene: SceneTensors) -> bool:
+    """True if any material references a texture."""
+    return any(tex_slots_used(scene).values())
 
 
 def scene_base_only_textured(scene: SceneTensors) -> bool:
-    """True when the scene's only texture use is baseColor."""
-    used = {k: bool((getattr(scene, k) >= 0).any()) for k in _TEX_SLOTS}
-    return used["mat_base_tex"] and not any(
-        used[k] for k in _TEX_SLOTS if k != "mat_base_tex"
-    )
+    """True when the scene's only texture use is baseColor: kernel B then
+    fetches the albedo itself, and the other slots are white."""
+    used = tex_slots_used(scene)
+    return used["mat_base_tex"] and not any(used[k] for k in _TEX_SLOTS[1:])
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,20 @@ class Camera:
         )
 
 
+def orbit_camera(t: float, center=(0.0, 0.0, 0.0), radius: float = 18.0,
+                 height: float = 6.0, fov_deg: float = 60.0) -> Camera:
+    """Fly-through camera: an orbit around ``center`` at parameter t in
+    [0, 1), the headless stand-in for mouse navigation (the benchmark
+    suite's city camera is ``orbit_camera(0.12, radius=300, height=48)``)."""
+    ang = 2.0 * math.pi * t
+    eye = (
+        center[0] + radius * math.sin(ang),
+        center[1] + height,
+        center[2] + radius * math.cos(ang),
+    )
+    return Camera(eye=eye, center=tuple(center), fov_deg=fov_deg)
+
+
 def camera_from_numpy(d: dict, device=None) -> CameraMatrices:
     """``CameraMatrices._asdict()`` of numpy arrays -> f32 tensors."""
     return CameraMatrices(**{
