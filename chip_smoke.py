@@ -35,11 +35,30 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
 5b. the city end to end, kernels against plain versions: ``make_city(grid=8)``
    at 160x120, depth 4, 4 frames on the card and on the CPU, display gate,
    ray counts within 0.1%;
+4c. hybrid mode (``benchmarks/suite.py`` row 4, ``hybrid_shadows_ao_gi``):
+   ``Engine`` on ``make_city(grid=96)`` at 1280x720, depth 3, spp 1,
+   shadows, AO and GI on, correlated sampler on, the city's camera, clear
+   (1,1,1,1) -- timed and profiled as 4b; the counters must grow by
+   exactly 6 trace and 2 shade launches a frame (the G-buffer's closest
+   trace, the visibility pool, then the GI chain's closest and shadow
+   traces of bounces 1 and 2), the shade launches all albedo launches.
+   Then one more frame's visibility pool (a shadow and four AO lanes a
+   pixel: 4,608,000 first-hit-kills lanes, t_min 0.1) through kernel A and
+   through the plain front-to-back walk: verdicts equal as uint32 on every
+   lane, and no hit on a lane that skips its query (d = 0, limit -0.0);
+   and the frame's stages profiled alone (the G-buffer pass, the shadow
+   and AO pool with its set-up, the effects with GI);
 5c. the general shading loop on the card: a scene built in memory with
    baseColor, metallic-roughness, emissive and normal-map textures (numpy
    images, no file) at 160x120, depth 4, 4 frames on the card and on the
    CPU with the same gate; on the card kernel A is launched depth + 1 times
    a frame and kernel B not at all;
+5d. hybrid frames end to end, kernels against plain versions, 160x120,
+   depth 3, 4 frames: the Cornell box with GI, ``make_city(grid=8)`` with
+   GI off and on; the display gate, rays within 0.1%, the G-buffers'
+   hit/miss masks equal and every field within 1e-4 on >= 99.9% of the
+   pixels, and the card's launches a frame (2 trace without GI; 6 trace
+   and 2 shade with it);
 6. the trace probes (``vkrt_tpu_torch.benchmarks``) on Cornell and on
    ``make_city(grid=96)`` (143,568 triangles, the scene of 3b and 4b, built
    once) at 1280x720: micro_trace
@@ -75,8 +94,9 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
 The last lines are a JSON object of the kernels (each with its time, its
 plain version's time, its bound, the one PyTorch call's time where one
 computes the same function and its launches on its path; ``trace`` and
-``shade`` count Cornell's main path in ``launches`` and the city's in
-``city_launches``), the card's nvidia-smi line, and
+``shade`` count Cornell's main path in ``launches``, the city's in
+``city_launches`` and the hybrid path's in ``hybrid_launches``, as does
+``shade_albedo``), the card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,7 +115,9 @@ CLEAR = (1.0, 1.0, 1.0, 1.0)
 # the city's main path: benchmarks/suite.py row 3 (its grid: benchmarks.CITY_GRID)
 CITY_DEPTH = 4
 CITY_CAM = dict(t=0.12, radius=300.0, height=48.0)
-# the small city of the end-to-end check: the camera scaled with the grid
+# the hybrid path: benchmarks/suite.py row 4, the city and camera of row 3
+HYBRID_DEPTH = 3
+# the small city of the end-to-end checks: the camera scaled with the grid
 SMALL_CITY_GRID, SMALL_CITY_CAM = 8, dict(t=0.12, radius=25.0, height=4.0)
 CSRC = "vkrt_tpu_torch/csrc/"
 # name -> (source, the TPU kernel it replaces)
@@ -475,12 +497,28 @@ def phase_albedo(dev, results, cb):
     results["shade_albedo"]["max_abs_err"] = max(errs)
 
 
-def drive_engine(eng, depth: int, albedo: bool, label: str):
+def path_launches(depth: int, albedo: bool) -> dict:
+    """Launches a path-mode frame makes: kernel A 2 * depth times (a closest
+    and a shadow trace a bounce), kernel B depth times (all of them albedo
+    launches on a baseColor-only scene)."""
+    return {"trace": 2 * depth, "shade": depth, "shade_albedo": depth if albedo else 0}
+
+
+def hybrid_launches(depth: int, albedo: bool) -> dict:
+    """Launches a hybrid frame with shadows, AO and GI makes on a scene
+    kernel B shades: kernel A for the G-buffer, once for the visibility
+    pool, then a closest and a shadow trace for each of the GI chain's
+    depth - 1 bounces; kernel B once a bounce."""
+    return {"trace": 2 + 2 * (depth - 1), "shade": depth - 1,
+            "shade_albedo": depth - 1 if albedo else 0}
+
+
+def drive_engine(eng, per_frame: dict, label: str):
     """A main path: 2 warm-up frames, then 3 batches of 8 frames timed with
     CUDA events, with the launch counters set to 0 just before and read
-    just after. Kernel A must run 2 * depth and kernel B depth times a
-    frame (all of them albedo launches when ``albedo``, else none). Returns
-    (best batch (ms/frame, Mrays/s, rays/frame), launches)."""
+    just after. Each counter must grow by ``per_frame`` a frame (keys
+    trace, shade, shade_albedo). Returns (best batch (ms/frame, Mrays/s,
+    rays/frame), launches)."""
     import torch
 
     from vkrt_tpu_torch.ops.cuda.shade import shade
@@ -511,14 +549,18 @@ def drive_engine(eng, depth: int, albedo: bool, label: str):
     for ms, mrays, rpf in batches:
         log(f"[{label}] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
     best = min(batches)
-    log(f"[{label}] {eng.width}x{eng.height} spp 1 depth {depth} corr on: best batch "
-        f"{best[0]:.4f} ms/frame, {best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame; "
-        f"launches {launches} over {frames} frames")
-    want = {"trace": 2 * depth * frames, "shade": depth * frames,
-            "shade_albedo": depth * frames if albedo else 0}
+    s = eng.settings
+    mode = ("path" if s.rt_mode == 1 else
+            f"hybrid (shadows {s.use_shadows}, AO {s.use_ao}, GI {s.use_gi})")
+    log(f"[{label}] {eng.width}x{eng.height} {mode} spp {s.samples} depth {s.depth} corr "
+        f"{'on' if s.corr_sampler else 'off'}: best batch {best[0]:.4f} ms/frame, "
+        f"{best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame; launches {launches} over "
+        f"{frames} frames ({', '.join(f'{k} {v / frames:g}' for k, v in launches.items())} "
+        f"a frame)")
+    want = {k: v * frames for k, v in per_frame.items()}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
-    accum = eng.accum.cpu().numpy()
+    accum = (eng.accum if s.rt_mode == 1 else eng.accum_rt).cpu().numpy()
     if not np.isfinite(accum).all():
         raise AssertionError(f"non-finite accum ({int((~np.isfinite(accum)).sum())} elements)")
     if float(accum.max()) <= 0.0:
@@ -527,30 +569,38 @@ def drive_engine(eng, depth: int, albedo: bool, label: str):
 
 
 def profile_frames(eng, label: str, frames: int = 4) -> dict:
-    """Where a frame's device time goes: ``frames`` frames under
-    torch.profiler, the device kernels' time a frame by kernel A, kernel B
-    and the rest (PyTorch's own kernels), the device's idle share between
-    the first kernel's start and the last one's end, and kernel launches a
-    frame. The profiled frames are extra: they are not in the timed
-    batches or the launch counts."""
+    """Where a frame's device time goes (``profile_calls`` of
+    ``eng.render_frame``). The profiled frames are extra: they are not in
+    the timed batches or the launch counts."""
+    return profile_calls(eng.render_frame, label, frames, "frame")
+
+
+def profile_calls(fn, label: str, calls: int = 4, unit: str = "call") -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler: the device kernels'
+    time a call by kernel A, kernel B and the rest (PyTorch's own kernels;
+    the three of those that take the most time by name), the device's idle
+    share between the first kernel's start and the last one's end, and
+    kernel launches a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            eng.render_frame()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         raise AssertionError(f"{label}: the profiler saw no device kernel")
-    by = {"kernel A": 0.0, "kernel B": 0.0, "other": 0.0}
+    by, other = {"kernel A": 0.0, "kernel B": 0.0, "other": 0.0}, {}
     for start, end, name in spans:
         key = ("kernel A" if "trace_kernel" in name else
                "kernel B" if "shade_kernel" in name else "other")
-        by[key] += (end - start) * 1e-3 / frames
+        by[key] += (end - start) * 1e-3 / calls
+        if key == "other":
+            other[name] = other.get(name, 0.0) + (end - start) * 1e-3 / calls
     busy, (lo, hi, _) = 0.0, spans[0]
     for start, end, _ in spans[1:]:
         if start > hi:
@@ -559,26 +609,27 @@ def profile_frames(eng, label: str, frames: int = 4) -> dict:
             hi = max(hi, end)
     busy += hi - lo
     window = max(end for _, end, _ in spans) - spans[0][0]
-    launches = sum(e.name == "cudaLaunchKernel" for e in events) / frames
+    launches = sum(e.name == "cudaLaunchKernel" for e in events) / calls
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:3]
     out = {"device_ms": sum(by.values()), "by_kernel_ms": by,
-           "idle_share": 1.0 - busy / window, "kernels_per_frame": len(spans) / frames,
-           "launch_calls_per_frame": launches}
-    log(f"[{label}] profile of {frames} frames: device kernel time {out['device_ms']:.4f} "
-        f"ms/frame (" + ", ".join(f"{k} {v:.4f}" for k, v in by.items()) + f"), idle share "
-        f"{out['idle_share']:.4f} of the {window * 1e-3 / frames:.4f} ms/frame device span, "
-        f"{out['kernels_per_frame']:.0f} kernels and {launches:.0f} cudaLaunchKernel calls a frame")
+           "idle_share": 1.0 - busy / window, "kernels_per_frame": len(spans) / calls,
+           "launch_calls_per_frame": launches, "top_other_ms": dict(top)}
+    log(f"[{label}] profile of {calls} {unit}s: device kernel time {out['device_ms']:.4f} "
+        f"ms/{unit} (" + ", ".join(f"{k} {v:.4f}" for k, v in by.items()) + f"), idle share "
+        f"{out['idle_share']:.4f} of the {window * 1e-3 / calls:.4f} ms/{unit} device span, "
+        f"{out['kernels_per_frame']:.0f} kernels and {launches:.0f} cudaLaunchKernel calls a "
+        f"{unit}; most device time among the rest: "
+        + "; ".join(f"{v:.4f} ms {k[:90]}" for k, v in top))
     return out
 
 
 def phase_main_path(dev, results):
-    from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.scene import load_cornell
     from vkrt_tpu_torch.utils.camera import Camera
 
-    settings = RenderSettings(samples=1, depth=DEPTH, rt_mode=1, corr_sampler=True)
-    eng = Engine(load_cornell(device=dev), W, H, settings, Camera(), CLEAR)
-    best, launches = drive_engine(eng, DEPTH, False, "main")
+    eng = Engine(load_cornell(device=dev), W, H, path_settings(DEPTH), Camera(), CLEAR)
+    best, launches = drive_engine(eng, path_launches(DEPTH, False), "main")
     results["trace"]["launches"] = launches["trace"]
     results["shade"]["launches"] = launches["shade"]
     results["main"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
@@ -588,16 +639,14 @@ def phase_main_path(dev, results):
 def phase_city_main_path(dev, results, city):
     """Phase 4b: suite row 3 through ``Engine`` (which builds its own BVH,
     as a user's call does)."""
-    from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.utils.camera import orbit_camera
 
-    settings = RenderSettings(samples=1, depth=CITY_DEPTH, rt_mode=1, corr_sampler=True)
     t0 = time.perf_counter()
-    eng = Engine(city, W, H, settings, orbit_camera(**CITY_CAM), CLEAR)
+    eng = Engine(city, W, H, path_settings(CITY_DEPTH), orbit_camera(**CITY_CAM), CLEAR)
     log(f"[city] Engine on {city.num_tris} triangles (padded): set-up with its BVH "
         f"{time.perf_counter() - t0:.2f} s")
-    best, launches = drive_engine(eng, CITY_DEPTH, True, "city")
+    best, launches = drive_engine(eng, path_launches(CITY_DEPTH, True), "city")
     results["shade_albedo"]["launches"] = launches["shade_albedo"]
     # the city path's own counts of kernels A and B (B's: all of them albedo
     # launches, so they equal shade_albedo's); "launches" is Cornell's
@@ -605,6 +654,110 @@ def phase_city_main_path(dev, results, city):
     results["shade"]["city_launches"] = launches["shade"]
     results["city"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
                        "rays_per_frame": best[2], "profile": profile_frames(eng, "city")}
+
+
+class PoolRecorder:
+    """A tracer that keeps the last first-hit-kills pool traced through it
+    (``any``: in a hybrid frame on a scene kernel B shades, the visibility
+    pool alone) and passes every call on to kernel A's tracer."""
+
+    def __init__(self, inner):
+        self.inner, self.pool = inner, None
+
+    def closest(self, *args, **kw):
+        return self.inner.closest(*args, **kw)
+
+    def trace_block(self, *args, **kw):
+        return self.inner.trace_block(*args, **kw)
+
+    def any(self, orig, direction, t_min, t_max):
+        self.pool = (orig, direction, t_min, t_max)
+        return self.inner.any(orig, direction, t_min, t_max)
+
+
+def phase_hybrid_main_path(dev, results, city):
+    """Phase 4c: suite row 4 (``hybrid_shadows_ao_gi``) through ``Engine``:
+    the timed batches and the profile as phase 4b, then one more frame
+    whose visibility pool (one shadow and four AO lanes a pixel) goes
+    through kernel A and through the plain front-to-back walk: equal
+    verdicts on every lane, and no hit on a lane that skips its query."""
+    import torch
+
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.models.gbuffer import gbuffer_pass
+    from vkrt_tpu_torch.models.hybrid import hybrid_effects
+    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+    from vkrt_tpu_torch.ops.rng import tea
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_ordered
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+
+    t_phase = time.perf_counter()
+    settings = RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_shadows=True,
+                              use_ao=True, use_gi=True, corr_sampler=True)
+    eng = Engine(city, W, H, settings, orbit_camera(**CITY_CAM), CLEAR)
+    per_frame = hybrid_launches(HYBRID_DEPTH, True)
+    best, launches = drive_engine(eng, per_frame, "hybrid")
+    if not (launches["trace"] > 0 and launches["shade"] > 0):
+        raise AssertionError(f"hybrid path launches {launches}")
+    for name in ("trace", "shade", "shade_albedo"):
+        results[name]["hybrid_launches"] = launches[name]
+    profile = profile_frames(eng, "hybrid")
+
+    rec = PoolRecorder(eng.tracer)
+    eng.tracer = rec
+    eng.render_frame()
+    eng.tracer = rec.inner
+    o, d, t_min, t_max = rec.pool
+    n = W * H
+    if o.shape[0] != 5 * n:
+        raise AssertionError(f"visibility pool of {o.shape[0]} lanes, want {5 * n}")
+    lim = -t_max.abs()  # Tracer.any: first-hit-kills lanes; a skipped query keeps -0.0
+    bvh = rec.inner.bvh
+    k = trace_kernel(bvh, city, o, d, lim, t_min, any_hit=True)
+    t0 = time.perf_counter()
+    p, counts = trace_rays_bvh_ordered(bvh, o, d, lim, t_min, any_hit=True, count=True)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # verdicts as uint32 (a miss's triangle id of -1 read as a float would be a NaN pattern)
+    kv, pv = ((h.tri >= 0).to(torch.int32).cpu().numpy().view(np.uint32) for h in (k, p))
+    skip = (t_max == 0.0).cpu().numpy()
+    log(f"[hybrid] visibility pool: {o.shape[0]} lanes ({int(skip.sum())} skip their query), "
+        f"t_min {t_min}, occluded {int(kv.sum())} (kernel A) / {int(pv.sum())} (plain walk), "
+        f"shadow lanes occluded {int(kv[:n].sum())}, AO lanes {int(kv[n:].sum())}")
+    if not np.array_equal(kv, pv):
+        raise AssertionError(f"visibility verdicts differ on {int((kv != pv).sum())} lanes")
+    if kv[skip].any() or pv[skip].any():
+        raise AssertionError("a lane that skips its query hit something")
+    ms = cuda_ms(lambda: trace_kernel(bvh, city, o, d, lim, t_min, any_hit=True), reps=8)
+    pool_bound = trace_bound(walk_tables(bvh), o.shape[0], counts)
+    log(f"[hybrid] visibility pool through kernel A: {ms:.4f} ms, bound {pool_bound[0]:.4f} ms "
+        f"({pool_bound[1]}; {counts.nodes.float().mean():.2f} slab and "
+        f"{counts.leaves.float().mean():.2f} triangle tests a lane), plain walk "
+        f"{plain_ms:.1f} ms (host clock)")
+    # the frame's stages alone, on frame 1's seeds: the G-buffer pass, the
+    # shadow and AO pool with its set-up, and the effects with GI
+    cam = eng.camera.matrices(W, H, dev)
+    seeds = tea(eng._perm, 1)
+    tracer = eng.tracer
+    gbuf = gbuffer_pass(city, tracer, cam, W, H, CLEAR, pix=eng._pix)
+
+    def effects(gi):
+        return lambda: hybrid_effects(city, tracer, gbuf, cam, seeds, 1, eng.accum_rt,
+                                      depth=HYBRID_DEPTH, use_shadows=True, use_ao=True,
+                                      use_gi=gi, corr=True)
+
+    stages = {"gbuffer": profile_calls(lambda: gbuffer_pass(city, tracer, cam, W, H, CLEAR,
+                                                            pix=eng._pix),
+                                       "hybrid G-buffer pass"),
+              "shadows_ao": profile_calls(effects(False), "hybrid shadows + AO"),
+              "shadows_ao_gi": profile_calls(effects(True), "hybrid shadows + AO + GI")}
+    results["hybrid"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
+                         "rays_per_frame": best[2], "launches_per_frame": per_frame,
+                         "profile": profile, "stages": stages, "pool_lanes": o.shape[0],
+                         "pool_ms": ms, "pool_plain_ms": plain_ms, "pool_bound_ms": pool_bound[0],
+                         "pool_bound_by": pool_bound[1]}
+    log(f"[hybrid] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def display_gate(name, imgs, rays) -> None:
@@ -626,19 +779,24 @@ def display_gate(name, imgs, rays) -> None:
         raise AssertionError(f"{name}: ray counts differ: {rays}")
 
 
-def render_both(dev, make_scene, camera, depth: int, w: int = 160, h: int = 120,
+def path_settings(depth: int):
+    from vkrt_tpu_torch.config import RenderSettings
+
+    return RenderSettings(samples=1, depth=depth, rt_mode=1, corr_sampler=True)
+
+
+def render_both(dev, make_scene, camera, settings, w: int = 160, h: int = 120,
                 frames: int = 4):
     """``frames`` frames of ``Engine`` on the card and on the CPU (plain
-    versions): ({device: image}, {device: rays}, the card's launches)."""
+    versions): ({device: image}, {device: rays}, the card's launches,
+    {device: the hybrid G-buffer as numpy arrays, or None})."""
     import torch
 
-    from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
-    settings = RenderSettings(samples=1, depth=depth, rt_mode=1, corr_sampler=True)
-    imgs, rays, launches = {}, {}, None
+    imgs, rays, launches, gbufs = {}, {}, None, {}
     for where in (dev, torch.device("cpu")):
         eng = Engine(make_scene(where), w, h, settings, camera, CLEAR)
         trace_kernel.launches = shade.launches = 0
@@ -646,16 +804,19 @@ def render_both(dev, make_scene, camera, depth: int, w: int = 160, h: int = 120,
             out = eng.render_frame()
         imgs[where.type] = out.cpu().numpy().astype(np.float64)
         rays[where.type] = eng.total_rays
+        gbufs[where.type] = (None if eng.gbuffer is None else
+                             type(eng.gbuffer)(*(x.cpu().numpy() for x in eng.gbuffer)))
         if where.type == "cuda":
             launches = {"trace": trace_kernel.launches, "shade": shade.launches}
-    return imgs, rays, launches
+    return imgs, rays, launches, gbufs
 
 
 def phase_end_to_end(dev):
     from vkrt_tpu_torch.scene import load_cornell
     from vkrt_tpu_torch.utils.camera import Camera
 
-    imgs, rays, _ = render_both(dev, lambda where: load_cornell(device=where), Camera(), DEPTH)
+    imgs, rays, _, _ = render_both(dev, lambda where: load_cornell(device=where), Camera(),
+                                   path_settings(DEPTH))
     display_gate(f"Cornell 160x120 depth {DEPTH} 4 frames", imgs, rays)
 
 
@@ -663,9 +824,9 @@ def phase_city_end_to_end(dev):
     from vkrt_tpu_torch.scene import make_city
     from vkrt_tpu_torch.utils.camera import orbit_camera
 
-    imgs, rays, launches = render_both(
+    imgs, rays, launches, _ = render_both(
         dev, lambda where: make_city(grid=SMALL_CITY_GRID, device=where),
-        orbit_camera(**SMALL_CITY_CAM), CITY_DEPTH)
+        orbit_camera(**SMALL_CITY_CAM), path_settings(CITY_DEPTH))
     display_gate(f"make_city(grid={SMALL_CITY_GRID}) 160x120 depth {CITY_DEPTH} 4 frames",
                  imgs, rays)
     want = {"trace": 2 * CITY_DEPTH * 4, "shade": CITY_DEPTH * 4}
@@ -733,13 +894,65 @@ def phase_general_loop(dev):
     if kernel_shading_available(general_scene("cpu")):
         raise AssertionError("the general scene would take the packed loop")
     cam = Camera(eye=(5.0, 4.0, 9.0), center=(0.0, 0.5, 0.0))
-    imgs, rays, launches = render_both(dev, general_scene, cam, CITY_DEPTH)
+    imgs, rays, launches, _ = render_both(dev, general_scene, cam, path_settings(CITY_DEPTH))
     display_gate(f"general loop, every texture slot, 160x120 depth {CITY_DEPTH} 4 frames",
                  imgs, rays)
     want = {"trace": (CITY_DEPTH + 1) * 4, "shade": 0}
     log(f"[general] launches on the card over 4 frames: {launches}")
     if launches != want:
         raise AssertionError(f"general loop launches {launches} != {want}")
+
+
+def compare_gbuffers(name, gbufs) -> None:
+    """The card's G-buffer against the CPU's: the hit/miss mask (position
+    and normal exactly 0) equal on every pixel, and every field within 1e-4
+    (absolute, or relative above 1) on >= 99.9% of the pixels."""
+    g, c = gbufs["cuda"], gbufs["cpu"]
+
+    def miss(x):
+        return (x.position[:, :3] == 0).all(1) & (x.normal[:, :3] == 0).all(1)
+
+    if not np.array_equal(miss(g), miss(c)):
+        raise AssertionError(f"{name}: G-buffer masks differ on "
+                             f"{int((miss(g) != miss(c)).sum())} pixels")
+    worst = 1.0
+    for field, a, b in zip(g._fields, g, c):
+        close = np.isclose(a, b, rtol=1e-4, atol=1e-4).reshape(a.shape[0], -1).all(1).mean()
+        worst = min(worst, close)
+        if close < 0.999:
+            raise AssertionError(f"{name}: G-buffer {field} close on {close:.5f} < 0.999")
+    log(f"[e2e] {name}: G-buffer masks equal ({miss(c).mean():.4f} background), every field "
+        f"close on >= {worst:.5f} of the pixels")
+
+
+def phase_hybrid_end_to_end(dev):
+    """Phase 5d: hybrid frames, kernels against plain versions: the Cornell
+    box with GI, the small city with GI off and on (160x120, depth 3, 4
+    frames); the display gate, rays within 0.1%, the G-buffers, and the
+    card's launches a frame."""
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.scene import load_cornell, make_city
+    from vkrt_tpu_torch.utils.camera import Camera, orbit_camera
+
+    def small_city(where):
+        return make_city(grid=SMALL_CITY_GRID, device=where)
+
+    for label, make_scene, camera, gi in (
+            ("Cornell", lambda where: load_cornell(device=where), Camera(), True),
+            (f"make_city(grid={SMALL_CITY_GRID})", small_city, orbit_camera(**SMALL_CITY_CAM),
+             False),
+            (f"make_city(grid={SMALL_CITY_GRID})", small_city, orbit_camera(**SMALL_CITY_CAM),
+             True)):
+        settings = RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_gi=gi,
+                                  corr_sampler=True)
+        imgs, rays, launches, gbufs = render_both(dev, make_scene, camera, settings)
+        name = f"hybrid {label} GI {'on' if gi else 'off'} 160x120 depth {HYBRID_DEPTH} 4 frames"
+        display_gate(name, imgs, rays)
+        compare_gbuffers(name, gbufs)
+        per = hybrid_launches(HYBRID_DEPTH, False) if gi else {"trace": 2, "shade": 0}
+        want = {"trace": per["trace"] * 4, "shade": per["shade"] * 4}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
 
 
 def sync(dev) -> None:
@@ -1178,9 +1391,12 @@ def main() -> int:
                         ("4 main path", lambda: phase_main_path(dev, results)),
                         ("4b city main path", lambda: phase_city_main_path(dev, results,
                                                                            city.scene)),
+                        ("4c hybrid main path", lambda: phase_hybrid_main_path(dev, results,
+                                                                               city.scene)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
                         ("5b city end to end", lambda: phase_city_end_to_end(dev)),
                         ("5c general loop", lambda: phase_general_loop(dev)),
+                        ("5d hybrid end to end", lambda: phase_hybrid_end_to_end(dev)),
                         ("6 probes", lambda: phase_probes(dev, results, pools["shadow"],
                                                           city))):
         t0 = time.perf_counter()

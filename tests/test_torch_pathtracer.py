@@ -134,8 +134,10 @@ def test_engine_and_app_smoke(tmp_path):
     assert eng.frame == 0
     eng.update_settings(eng.settings.replace(depth=3))
     assert eng.frame == -1
-    with pytest.raises(NotImplementedError, match="hybrid mode"):
-        Engine(make_cornell_box(device="cpu"), 32, 24, RenderSettings(rt_mode=0))
+    # hybrid mode is the default (tests/test_torch_hybrid_engine.py holds it
+    # to the JAX package)
+    hybrid = Engine(make_cornell_box(device="cpu"), 32, 24)
+    assert hybrid.settings.rt_mode == 0 and hybrid.render(1).mean() > 10
 
     out = tmp_path / "pt.png"
     rc = app.main(["--procedural", "cornell", "--mode", "path", "--width", "32",
@@ -144,8 +146,9 @@ def test_engine_and_app_smoke(tmp_path):
     assert rc == 0
     png = decode_png(out.read_bytes())
     assert png.shape[:2] == (24, 32) and png[..., :3].mean() > 10
-    with pytest.raises(NotImplementedError, match="hybrid mode is ported in a later PR"):
-        app.main(["--procedural", "cornell", "--mode", "hybrid", "--out", str(out)])
+    rc = app.main(["--procedural", "cornell", "--mode", "hybrid", "--width", "32",
+                   "--height", "24", "--device", "cpu", "--out", str(out)])
+    assert rc == 0 and decode_png(out.read_bytes())[..., :3].mean() > 10
     if not torch.cuda.is_available():  # no silent fall back to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             app.main(["--procedural", "cornell", "--out", str(out)])

@@ -63,7 +63,7 @@ def test_seed_pixels_bit_exact(frame):
 
 
 @pytest.mark.parametrize("corr_seed", [0, 2**31, 0xFFFFFFFF, 0x9E3779B9])
-@pytest.mark.parametrize("depth", [0, 1, 2])
+@pytest.mark.parametrize("depth", [0, 1, 2, 64, 67, 72])  # 64+: hybrid's pre-chain draws
 def test_corr_tables_bit_exact(corr_seed, depth):
     want = np.asarray(jrng.block_uniform_table(13, jnp.uint32(corr_seed), depth))
     got = trng.block_uniform_table(13, corr_seed, depth)

@@ -166,5 +166,6 @@ def test_port_imports_no_jax():
                  "ops.cuda.probes", "ops.cuda.trace_variants", "benchmarks.micro_trace",
                  "benchmarks.ablate_kernel", "benchmarks.variants", "benchmarks.vpupeak",
                  "utils.smath", "utils.obj", "ops.texture", "ops.sampling", "ops.brdf",
-                 "models.shading"):
+                 "models.shading", "ops.nrd", "models.gbuffer", "models.hybrid",
+                 "models.post"):
         assert f"vkrt_tpu_torch.{name}" in names, name

@@ -9,8 +9,9 @@ use and bound with ``ctypes`` (``device.py``).
 Subpackages
 -----------
 ``vkrt_tpu_torch.utils``       camera, glTF, PNG, the native SAH BVH builder
-``vkrt_tpu_torch.ops``         RNG, intersection, trace backends, CUDA kernels
-``vkrt_tpu_torch.models``      path tracer, post
+``vkrt_tpu_torch.ops``         RNG, intersection, trace backends, textures,
+                               sampling, BRDF, NRD packing, CUDA kernels
+``vkrt_tpu_torch.models``      path tracer, shading, G-buffer, hybrid, post
 ``vkrt_tpu_torch.benchmarks``  trace-kernel probes (launch floor, ablations,
                                traversal variants, FP32 FMA peak)
 

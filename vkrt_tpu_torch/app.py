@@ -1,10 +1,11 @@
-"""Headless CLI app, path mode (port of ``vkrt_tpu/app.py``).
+"""Headless CLI app (port of ``vkrt_tpu/app.py``): hybrid mode (the
+default, without the denoiser) or path mode.
 
 Usage:
-    python -m vkrt_tpu_torch.app --procedural cornell --mode path \\
+    python -m vkrt_tpu_torch.app --procedural cornell --gi \\
         --width 1280 --height 720 --frames 16 --out out.png
-    python -m vkrt_tpu_torch.app --config config.json --spp 2 --depth 5
-    python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --depth 4
+    python -m vkrt_tpu_torch.app --config config.json --mode path --spp 2 --depth 5
+    python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --mode path --depth 4
 
 Renders on the card (``--device cuda``, the default: it fails when there is
 no card) or, with ``--device cpu``, through the kernels' plain versions.
@@ -33,12 +34,16 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--config", default=None, help="config.json path")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
-    p.add_argument("--mode", choices=["hybrid", "path"], default="path",
-                   help="render mode (hybrid is ported in a later PR)")
+    p.add_argument("--mode", choices=["hybrid", "path"], default="hybrid",
+                   help="render mode (main.cpp:457; default hybrid like the reference)")
     p.add_argument("--spp", type=int, default=1, help="samples/pixel 1-100")
     p.add_argument("--depth", type=int, default=3, help="bounces 1-30")
     p.add_argument("--frames", type=int, default=1,
                    help="progressive frames to accumulate")
+    p.add_argument("--no-shadows", action="store_true")
+    p.add_argument("--no-ao", action="store_true")
+    p.add_argument("--gi", action="store_true", help="enable hybrid GI")
+    p.add_argument("--view-accumulated", action="store_true")
     p.add_argument("--corr-sampler", action=argparse.BooleanOptionalAction,
                    default=RenderSettings().corr_sampler,
                    help="correlated per-block sampler: share the lobe/light/"
@@ -64,10 +69,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.frames < 1:
         parser.error(f"--frames must be >= 1 (got {args.frames})")
-    if args.mode == "hybrid":
-        from vkrt_tpu_torch.engine import HYBRID_ERROR
-
-        raise NotImplementedError(HYBRID_ERROR)
     from vkrt_tpu_torch.device import select
 
     device = select(args.device)
@@ -101,8 +102,16 @@ def main(argv=None) -> int:
     print(f"scene loaded: {scene.num_tris} tris, {scene.num_lights} lights "
           f"({time.time() - t0:.2f}s) on {device}")
 
-    settings = RenderSettings(samples=args.spp, depth=args.depth, rt_mode=1,
-                              corr_sampler=args.corr_sampler)
+    settings = RenderSettings(
+        samples=args.spp,
+        depth=args.depth,
+        use_shadows=not args.no_shadows,
+        use_ao=not args.no_ao,
+        use_gi=args.gi,
+        rt_mode=1 if args.mode == "path" else 0,
+        view_accumulated=args.view_accumulated,
+        corr_sampler=args.corr_sampler,
+    )
     cam = Camera(
         eye=tuple(args.eye) if args.eye else (0.0, 0.0, 15.0),
         center=tuple(args.lookat) if args.lookat else (0.0, 0.0, 0.0),

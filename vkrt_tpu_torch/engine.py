@@ -1,10 +1,13 @@
 """Engine: frame orchestration, progressive accumulation, invalidation
-(port of ``vkrt_tpu/engine.py``, path mode, any opaque scene: untextured
-and baseColor-only scenes through kernels A and B, other textured scenes
-through kernel A and the general shading loop).
+(port of ``vkrt_tpu/engine.py``, both render modes without the denoiser):
+hybrid mode (the default, ``rt_mode`` 0: G-buffer, ray-traced shadows, AO
+and one-path GI) and path mode (``rt_mode`` 1). Untextured and
+baseColor-only scenes bounce through kernels A and B, other textured
+scenes through kernel A and the general shading loop.
 
-Owns the scene, tracer, camera state, accumulation buffer and frame
-counter, and exposes ``render_frame()``. The reset rules:
+Owns the scene, tracer, camera state, accumulation buffers, the hybrid
+G-buffer and the frame counter, and exposes ``render_frame()``. The reset
+rules:
 
 * ``update_frame``: bump the counter, reset when the camera changed
   (hello_vulkan.cpp:1506-1521);
@@ -12,7 +15,8 @@ counter, and exposes ``render_frame()``. The reset rules:
   update makes it 0;
 * any settings change resets accumulation (main.cpp:103-104, 463-464);
 * max-frames early-out: when limiting is on and frame >= maxFrames the
-  frame is not re-rendered (hello_vulkan.cpp:1426-1430).
+  frame is not re-rendered (hello_vulkan.cpp:1426-1430); hybrid mode
+  renders once first when it has no G-buffer to show.
 
 Pixels run in 32x32-tile order (``utils.camera.tile_perm``) with seeds of
 the original pixel id, ``tea(pid, frame)``, so a pixel's radiance does not
@@ -28,21 +32,27 @@ import torch
 
 from vkrt_tpu_torch.config import DEFAULT_CLEAR_COLOR, RenderSettings
 from vkrt_tpu_torch.models import post as post_mod
+from vkrt_tpu_torch.models.hybrid import DENOISER_ERROR, hybrid_frame
 from vkrt_tpu_torch.models.pathtracer import pathtrace_frame
 from vkrt_tpu_torch.ops.rng import tea
 from vkrt_tpu_torch.ops.trace import make_tracer
 from vkrt_tpu_torch.scene import SceneTensors
 from vkrt_tpu_torch.utils.camera import Camera, pixel_coords, tile_perm, untile
 
-HYBRID_ERROR = "hybrid mode is ported in a later PR"
 ALPHA_ERROR = "alpha test is ported in a later PR"
+# a change of any of these reallocates the buffers (the JAX engine's
+# re-jit list); the display and clamp knobs and the frame limit do not
+_BUFFER_FIELDS = ("samples", "depth", "rt_mode", "use_shadows", "use_ao", "use_gi",
+                  "use_denoiser", "temporal_denoiser", "backend", "alpha_test",
+                  "corr_sampler")
 
 
 def _check_settings(settings: RenderSettings) -> None:
     """Refuse what the port does not render yet, rather than render
-    something else without a word."""
-    if settings.rt_mode != 1:
-        raise NotImplementedError(HYBRID_ERROR)
+    something else without a word. Like the JAX engine, hybrid mode
+    ignores ``use_denoiser`` without GI."""
+    if settings.rt_mode == 0 and settings.use_denoiser and settings.use_gi:
+        raise NotImplementedError(DENOISER_ERROR)
     if settings.alpha_test:
         raise NotImplementedError(ALPHA_ERROR)
 
@@ -53,7 +63,7 @@ class Engine:
         scene: SceneTensors,
         width: int,
         height: int,
-        settings: RenderSettings = RenderSettings(rt_mode=1),
+        settings: RenderSettings = RenderSettings(),
         camera: Camera = Camera(),
         clear_color=DEFAULT_CLEAR_COLOR,
     ):
@@ -83,7 +93,9 @@ class Engine:
         self._perm = torch.as_tensor(perm.astype(np.int64), device=self.device)
         self._inv_perm = torch.as_tensor(inv.astype(np.int64), device=self.device)
         self._pix = pixel_coords(self.width, self.height, self.device)[self._perm]
-        self.accum = torch.zeros((n, 3), dtype=torch.float32, device=self.device)
+        self.accum = torch.zeros((n, 3), dtype=torch.float32, device=self.device)  # path
+        self.accum_rt = torch.zeros((n, 4), dtype=torch.float32, device=self.device)  # hybrid
+        self.gbuffer = None  # hybrid G-buffer of the last rendered frame
 
     def _untile(self, out):
         if self.width % 32 == 0:
@@ -107,7 +119,10 @@ class Engine:
         _check_settings(settings)
         if settings.backend != self.settings.backend:
             self.tracer = make_tracer(self.scene, settings.backend)
+        realloc = any(getattr(settings, f) != getattr(self.settings, f) for f in _BUFFER_FIELDS)
         self.settings = settings
+        if realloc:
+            self._alloc_buffers()
         self.reset_frame()  # any UI change calls resetFrame (main.cpp:103)
 
     def resize(self, width: int, height: int):
@@ -117,22 +132,36 @@ class Engine:
         self._alloc_buffers()
 
     def render_frame(self) -> torch.Tensor:
-        """One main-loop iteration. Returns the linear image (N,3) in
+        """One main-loop iteration. Returns the linear composite (N,3) in
         scanline order."""
         self.update_frame()
         s = self.settings
-        if not (s.stop_at_max_frames and self.frame >= s.max_frames):
+        at_limit = s.stop_at_max_frames and self.frame >= s.max_frames
+        if s.rt_mode == 0 and self.gbuffer is None:
+            at_limit = False  # nothing to show yet: render once first
+        if not at_limit:
             cam = self.camera.matrices(self.width, self.height, self.device)
             seeds = tea(self._perm, self.frame)  # original pixel ids
-            self.accum, rays = pathtrace_frame(
-                self.scene, self.tracer, cam, self.frame, self.accum,
-                self.clear_color, width=self.width, height=self.height,
-                samples=s.samples, depth=s.depth,
-                clamp_weights=bool(s.clamp_weights), corr=s.corr_sampler,
-                pix=self._pix, seeds=seeds,
-            )
+            kw = dict(width=self.width, height=self.height, depth=s.depth,
+                      clamp_weights=bool(s.clamp_weights), corr=s.corr_sampler,
+                      pix=self._pix, seeds=seeds)
+            if s.rt_mode == 1:
+                self.accum, rays = pathtrace_frame(
+                    self.scene, self.tracer, cam, self.frame, self.accum, self.clear_color,
+                    samples=s.samples, **kw)
+            else:
+                self.gbuffer, self.accum_rt, rays = hybrid_frame(
+                    self.scene, self.tracer, cam, self.frame, self.accum_rt,
+                    self.clear_color, use_shadows=s.use_shadows, use_ao=s.use_ao,
+                    use_gi=s.use_gi, use_denoiser=s.use_denoiser, **kw)
             self._total_rays = self._total_rays + rays
-        return self._untile(self.accum)
+        if s.rt_mode == 1:
+            out = post_mod.composite(self.accum, None, rt_mode=1,
+                                     view_accumulated=s.view_accumulated, use_gi=s.use_gi)
+        else:
+            out = post_mod.composite(self.gbuffer.color[:, :3], self.accum_rt, rt_mode=0,
+                                     view_accumulated=s.view_accumulated, use_gi=s.use_gi)
+        return self._untile(out)
 
     def render(self, frames: int = 1) -> np.ndarray:
         """Render ``frames`` progressive frames, return (H,W,3) uint8."""

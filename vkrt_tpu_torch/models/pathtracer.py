@@ -47,11 +47,14 @@ def bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
     """Run the bounce loop (rgen:62-116). ``corr_seed``: uint32 enabling
     the correlated per-block sampler, None for independent per-lane
     draws. The packed loop (``ops.cuda.shade.bounce_chain_packed``) where
-    kernel B shades the scene, else ``general_bounce_chain``; both serve
-    any depth."""
+    kernel B shades the scene and the tracer is not seeded per call (an
+    alpha tracer's ``with_seed``: kernel A's tables cannot see through a
+    transparent surface), else ``general_bounce_chain``; both serve any
+    depth."""
     if depth <= start_depth:
         return carry
-    loop = bounce_chain_packed if kernel_shading_available(scene) else general_bounce_chain
+    packed = kernel_shading_available(scene) and not hasattr(tracer, "with_seed")
+    loop = bounce_chain_packed if packed else general_bounce_chain
     return loop(
         scene, tracer, carry,
         depth=depth, start_depth=start_depth, clear_color=clear_color,
@@ -70,7 +73,8 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
     (its XLA body, rgen:62-116) for any scene: per bounce ``surface_at_hit``
     and ``sample_bsdf``, then one fused trace of 2N rays, the next bounce's
     main rays and this bounce's shadow rays, whose lanes carry negative
-    limits (kernel A's first-hit-kills lanes: only the verdict is read);
+    limits (kernel A's first-hit-kills lanes: only the verdict is read)
+    when the tracer declares ``anyhit_kill_capable``, else positive ones;
     the last bounce traces its shadow rays alone (``any``). Dead lanes get
     a degenerate ray (origin 1e30, d = 0, limit -1).
 
@@ -83,6 +87,7 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
     lo, hi = clamp_bounds(clamp_weights)
     clear3 = torch.tensor([float(c) for c in clear_color[:3]], dtype=torch.float32,
                           device=carry.origin.device)
+    sh_sign = -1.0 if getattr(tracer, "anyhit_kill_capable", False) else 1.0
 
     def closest(o, d, lim):
         return tracer.closest(o, d, t_min, t_max, t_lim=lim)
@@ -113,7 +118,8 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
         # and limit 0, so they never hit
         do_shadow = c.active & ~miss & ~is_spec_this
         sh_dir = torch.where(do_shadow[:, None], bs.shadow_dir, 0.0)
-        sh_lim = torch.where(do_shadow, -torch.clamp_min(light_dist_this - 0.1, t_min), 0.0)
+        sh_lim = torch.where(do_shadow, sh_sign * torch.clamp_min(light_dist_this - 0.1, t_min),
+                             0.0)
         active_next = c.active & ~miss
 
         if trace_next:

@@ -469,6 +469,9 @@ class Tracer:
     """Brute-force tracer bound to one scene (the CPU oracle)."""
 
     scene: SceneTensors
+    # a negative limit makes a lane first-hit-kills (the verdict is what a
+    # shadow query reads), which the general loop gives its shadow lanes
+    anyhit_kill_capable = True
 
     def trace(self, o, d, t_lim, t_min: float = T_MIN,
               any_hit: bool = False) -> RayHits:
@@ -484,10 +487,11 @@ class Tracer:
         return self.trace(rays[0:3].T, rays[3:6].T, rays[6], t_min)
 
     def _lim(self, orig, t_max, t_lim):
+        """(N,) contiguous limits (kernel A reads them as an array)."""
         if t_lim is not None:
             return t_lim
         lim = torch.as_tensor(t_max, dtype=orig.dtype, device=orig.device)
-        return lim.expand(orig.shape[:1])
+        return lim.expand(orig.shape[:1]).contiguous()
 
     def closest(self, orig, direction, t_min, t_max, t_lim=None) -> HitInfo:
         """Closest hit. ``t_lim``: optional per-ray tMax override."""

@@ -2,9 +2,10 @@
 
 The numpy baking of the JAX package is kept line for line, so both packages
 build equal arrays from one glTF document or triangle soup, textured scenes
-and their bf16 mip atlas included. Which texture slots a scene uses is
-decided once, from the host arrays (``tex_slots_used``), so the shading
-paths pick their branches without reading the device back every frame.
+and their mip atlas included (bf16 unless ``VKRT_TEX_BF16=0``). Which
+texture slots a scene uses is decided once, from the host arrays
+(``tex_slots_used``), so the shading paths pick their branches without
+reading the device back every frame.
 
 Every constructor takes ``device``: ``None`` means the card
 (``device.select()``, which raises without one); the CPU tests pass
@@ -55,7 +56,7 @@ class SceneTensors(NamedTuple):
     light_type: torch.Tensor       # (L,) i32
     tex_rgba: torch.Tensor         # (K,TH,TW,4) f32
     tex_size: torch.Tensor         # (K,2) i32 (w,h)
-    tex_mip_atlas: torch.Tensor    # (K,TH,2*TW,4) bf16
+    tex_mip_atlas: torch.Tensor    # (K,TH,2*TW,4) bf16 (f32 with VKRT_TEX_BF16=0)
     tex_level_size: torch.Tensor   # (K,L,2) i32
     tex_level_off: torch.Tensor    # (K,L) i32
     tex_n_levels: torch.Tensor     # (K,) i32
@@ -184,6 +185,15 @@ def _uv_density(v0, v1, v2, cuv):
     return np.sqrt(
         np.where(world_area > 1e-20, uv_area / np.maximum(world_area, 1e-20), 0.0)
     ).astype(np.float32)
+
+
+def _tex_store_dtype() -> torch.dtype:
+    """The mip atlas's storage dtype, read when a scene is built: bf16
+    unless ``VKRT_TEX_BF16=0``, as the JAX package decides it
+    (``vkrt_tpu/scene.py::_tex_store_dtype``). Texel fetches cast to f32
+    after the gather; ``tex_rgba`` (level 0, read by the path tracer and
+    kernel B) stays f32 either way."""
+    return torch.bfloat16 if os.environ.get("VKRT_TEX_BF16", "1") == "1" else torch.float32
 
 
 def _slots_used(arrays: dict) -> dict:
@@ -317,8 +327,7 @@ def build_scene(doc: gltf_mod.GltfDocument, pad_to: int = TRI_PAD,
     scene = scene_from_numpy(
         {k: np.asarray(a, dt) for k, (a, dt) in arrays.items()}, device
     )
-    # the mip atlas is stored in bf16, as the JAX package stores it
-    return scene._replace(tex_mip_atlas=scene.tex_mip_atlas.to(torch.bfloat16))
+    return scene._replace(tex_mip_atlas=scene.tex_mip_atlas.to(_tex_store_dtype()))
 
 
 def load_scene(path: str, device=None) -> SceneTensors:
