@@ -48,6 +48,20 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    lane, and no hit on a lane that skips its query (d = 0, limit -0.0);
    and the frame's stages profiled alone (the G-buffer pass, the shadow
    and AO pool with its set-up, the effects with GI);
+4d. the denoised fly-through (``benchmarks/suite.py`` row 5,
+   ``city_flythrough_denoised``): ``Engine`` on ``make_city(grid=96)`` at
+   1280x720, hybrid, shadows, AO and GI, depth 3, spp 1, the temporal
+   denoiser, correlated sampler on, clear (1,1,1,1), the camera at
+   ``orbit_camera(k / 8, radius=300, height=48)`` before the k-th frame of
+   the warm-up and of each batch -- timed as 4b, with the counters growing
+   by 6 trace and 2 (albedo) shade launches a frame: the denoiser launches
+   no kernel of its own. Then the frame and the denoiser alone under
+   torch.profiler; one frame's denoiser inputs filtered on the card and on
+   the CPU by the same torch code (every float within atol 1e-5 + rtol
+   1e-4); the history's mean length growing over 4 static frames; and the
+   suite's ``rmse_vs_converged`` (the last fly-through frame against 64
+   static frames with the denoiser off at its pose) and
+   ``rmse_noisy_1frame``, by ``utils/metrics.rmse``;
 5c. the general shading loop on the card: a scene built in memory with
    baseColor, metallic-roughness, emissive and normal-map textures (numpy
    images, no file) at 160x120, depth 4, 4 frames on the card and on the
@@ -59,6 +73,22 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    hit/miss masks equal and every field within 1e-4 on >= 99.9% of the
    pixels, and the card's launches a frame (2 trace without GI; 6 trace
    and 2 shade with it);
+5e. denoised hybrid frames end to end, kernels against plain versions: the
+   Cornell box and the small city at 160x120, depth 3, 4 frames with the
+   camera moving every frame, with the temporal and with the spatial-only
+   denoiser; frame by frame the noisy GI through the display gate, the
+   card's denoiser against the plain torch code on the card's inputs, and
+   the filtered GI through the display gate until the first pixel whose
+   variance boost sits on its ulp tie (history length 4 +- an ulp); the
+   final composite through the display gate when no such tie flipped
+   (reported otherwise); rays within 0.1%, launches as in 5d;
+5f. alpha-tested transparency: the small city with material 3 BLEND at
+   alpha 0.5 and material 2 MASK at 0.3 under cutoff 0.5, path mode at
+   depth 4 and hybrid (shadows, AO, GI), 160x120, 4 frames, card against
+   CPU: the display gate, rays within 0.1%, kernel A 25 launches a frame
+   (5 traces of 1 + 4 punch rounds each; every round runs) and kernel B
+   none (the general loop); then the full city with the same switch in
+   hybrid mode at 1280x720, 2 warm-up frames and one timed batch of 8;
 6. the trace probes (``vkrt_tpu_torch.benchmarks``) on Cornell and on
    ``make_city(grid=96)`` (143,568 triangles, the scene of 3b and 4b, built
    once) at 1280x720: micro_trace
@@ -95,8 +125,10 @@ The last lines are a JSON object of the kernels (each with its time, its
 plain version's time, its bound, the one PyTorch call's time where one
 computes the same function and its launches on its path; ``trace`` and
 ``shade`` count Cornell's main path in ``launches``, the city's in
-``city_launches`` and the hybrid path's in ``hybrid_launches``, as does
-``shade_albedo``), the card's nvidia-smi line, and
+``city_launches``, the hybrid path's in ``hybrid_launches`` and the
+denoised fly-through's in ``denoised_launches``, as does ``shade_albedo``;
+``trace``'s ``alpha_launches`` counts phase 5f's full-size alpha run), the
+card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -119,6 +151,8 @@ CITY_CAM = dict(t=0.12, radius=300.0, height=48.0)
 HYBRID_DEPTH = 3
 # the small city of the end-to-end checks: the camera scaled with the grid
 SMALL_CITY_GRID, SMALL_CITY_CAM = 8, dict(t=0.12, radius=25.0, height=4.0)
+# the denoised fly-through: benchmarks/suite.py row 5, 8 poses of an orbit
+FLY_FRAMES, FLY_CAM = 8, dict(radius=300.0, height=48.0)
 CSRC = "vkrt_tpu_torch/csrc/"
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -513,31 +547,38 @@ def hybrid_launches(depth: int, albedo: bool) -> dict:
             "shade_albedo": depth - 1 if albedo else 0}
 
 
-def drive_engine(eng, per_frame: dict, label: str):
-    """A main path: 2 warm-up frames, then 3 batches of 8 frames timed with
-    CUDA events, with the launch counters set to 0 just before and read
-    just after. Each counter must grow by ``per_frame`` a frame (keys
-    trace, shade, shade_albedo). Returns (best batch (ms/frame, Mrays/s,
-    rays/frame), launches)."""
+def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3):
+    """A main path: 2 warm-up frames, then ``batches_n`` batches of 8 frames
+    timed with CUDA events, with the launch counters set to 0 just before
+    and read just after. Each counter must grow by ``per_frame`` a frame
+    (keys trace, shade, shade_albedo). ``pose``: camera of the k-th frame
+    of the warm-up or of a batch (a fly-through: ``eng.camera`` is set
+    before each frame), None for a fixed camera. Returns (best batch
+    (ms/frame, Mrays/s, rays/frame), launches, the last frame's image)."""
     import torch
 
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
+    def frame(k):
+        if pose is not None:
+            eng.camera = pose(k)
+        return eng.render_frame()
+
     trace_kernel.launches = shade.launches = shade.albedo_launches = 0
     frames = 0
-    for _ in range(2):  # warm-up
-        eng.render_frame()
+    for k in range(2):  # warm-up
+        frame(k)
         frames += 1
     torch.cuda.synchronize()
     batches = []
-    for _ in range(3):
+    for _ in range(batches_n):
         rays0 = eng.total_rays
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(8):
-            eng.render_frame()
+        for k in range(8):
+            out = frame(k)
             frames += 1
         end.record()
         end.synchronize()
@@ -565,7 +606,7 @@ def drive_engine(eng, per_frame: dict, label: str):
         raise AssertionError(f"non-finite accum ({int((~np.isfinite(accum)).sum())} elements)")
     if float(accum.max()) <= 0.0:
         raise AssertionError("all-zero/black accum")
-    return best, launches
+    return best, launches, out
 
 
 def profile_frames(eng, label: str, frames: int = 4) -> dict:
@@ -629,7 +670,7 @@ def phase_main_path(dev, results):
     from vkrt_tpu_torch.utils.camera import Camera
 
     eng = Engine(load_cornell(device=dev), W, H, path_settings(DEPTH), Camera(), CLEAR)
-    best, launches = drive_engine(eng, path_launches(DEPTH, False), "main")
+    best, launches, _ = drive_engine(eng, path_launches(DEPTH, False), "main")
     results["trace"]["launches"] = launches["trace"]
     results["shade"]["launches"] = launches["shade"]
     results["main"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
@@ -646,7 +687,7 @@ def phase_city_main_path(dev, results, city):
     eng = Engine(city, W, H, path_settings(CITY_DEPTH), orbit_camera(**CITY_CAM), CLEAR)
     log(f"[city] Engine on {city.num_tris} triangles (padded): set-up with its BVH "
         f"{time.perf_counter() - t0:.2f} s")
-    best, launches = drive_engine(eng, path_launches(CITY_DEPTH, True), "city")
+    best, launches, _ = drive_engine(eng, path_launches(CITY_DEPTH, True), "city")
     results["shade_albedo"]["launches"] = launches["shade_albedo"]
     # the city path's own counts of kernels A and B (B's: all of them albedo
     # launches, so they equal shade_albedo's); "launches" is Cornell's
@@ -697,7 +738,7 @@ def phase_hybrid_main_path(dev, results, city):
                               use_ao=True, use_gi=True, corr_sampler=True)
     eng = Engine(city, W, H, settings, orbit_camera(**CITY_CAM), CLEAR)
     per_frame = hybrid_launches(HYBRID_DEPTH, True)
-    best, launches = drive_engine(eng, per_frame, "hybrid")
+    best, launches, _ = drive_engine(eng, per_frame, "hybrid")
     if not (launches["trace"] > 0 and launches["shade"] > 0):
         raise AssertionError(f"hybrid path launches {launches}")
     for name in ("trace", "shade", "shade_albedo"):
@@ -760,23 +801,35 @@ def phase_hybrid_main_path(dev, results, city):
     log(f"[hybrid] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
-def display_gate(name, imgs, rays) -> None:
-    """The display-domain gate (tests/test_accuracy_oracle.py:83-88) between
-    the card's and the CPU's images, and their ray counts within 0.1%."""
-    disp = {k: np.clip(np.clip(v, 0, None) ** (1.0 / 2.2), 0, 1) for k, v in imgs.items()}
-    err = np.abs(disp["cuda"] - disp["cpu"]).max(-1)
+def gate_numbers(a, b):
+    """The display-domain gate's numbers (tests/test_accuracy_oracle.py:83-88)
+    between two linear images: (p99 of the per-pixel error, the share of
+    pixels beyond 1e-2, the RMSE of the rest, whether the gate holds)."""
+    da, db = (np.clip(np.clip(x, 0, None) ** (1.0 / 2.2), 0, 1) for x in (a, b))
+    err = np.abs(da - db).max(-1)
     p99 = float(np.percentile(err, 99))
     diverged = err > 1e-2
-    rmse = float(np.sqrt(np.mean((disp["cuda"] - disp["cpu"])[~diverged] ** 2)))
-    log(f"[e2e] {name}, kernels vs plain: p99 {p99:.3g}, diverged {diverged.mean():.4f}, "
-        f"rmse {rmse:.3g}, rays {rays}, mean {float(imgs['cuda'].mean()):.4f}")
+    rmse = float(np.sqrt(np.mean((da - db)[~diverged] ** 2)))
+    return p99, float(diverged.mean()), rmse, p99 <= 1e-3 and diverged.mean() < 0.01 and \
+        rmse <= 1e-3
+
+
+def display_gate(name, imgs, rays, gated: bool = True) -> bool:
+    """The display-domain gate between the card's and the CPU's images, and
+    their ray counts within 0.1%. ``gated`` False reports the gate and
+    returns whether it held, without failing on it."""
+    p99, diverged, rmse, ok = gate_numbers(imgs["cuda"], imgs["cpu"])
+    log(f"[e2e] {name}, kernels vs plain: p99 {p99:.3g}, diverged {diverged:.4f}, "
+        f"rmse {rmse:.3g}, rays {rays}, mean {float(imgs['cuda'].mean()):.4f}"
+        + ("" if gated else f" (reported, not gated: {'holds' if ok else 'fails'})"))
     for k, v in imgs.items():
         if not np.isfinite(v).all() or float(v.max()) <= 0.0:
             raise AssertionError(f"{name}: the {k} image is not finite and non-black")
-    if not (p99 <= 1e-3 and diverged.mean() < 0.01 and rmse <= 1e-3):
+    if gated and not ok:
         raise AssertionError(f"{name}: end-to-end display gate failed")
     if abs(rays["cuda"] - rays["cpu"]) > 1e-3 * rays["cpu"]:
         raise AssertionError(f"{name}: ray counts differ: {rays}")
+    return ok
 
 
 def path_settings(depth: int):
@@ -789,18 +842,22 @@ def render_both(dev, make_scene, camera, settings, w: int = 160, h: int = 120,
                 frames: int = 4):
     """``frames`` frames of ``Engine`` on the card and on the CPU (plain
     versions): ({device: image}, {device: rays}, the card's launches,
-    {device: the hybrid G-buffer as numpy arrays, or None})."""
+    {device: the hybrid G-buffer as numpy arrays, or None}). ``camera``: a
+    Camera, or a function of the frame index giving the camera of each
+    frame (a fly-through)."""
     import torch
 
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
+    pose = camera if callable(camera) else (lambda f: camera)
     imgs, rays, launches, gbufs = {}, {}, None, {}
     for where in (dev, torch.device("cpu")):
-        eng = Engine(make_scene(where), w, h, settings, camera, CLEAR)
+        eng = Engine(make_scene(where), w, h, settings, pose(0), CLEAR)
         trace_kernel.launches = shade.launches = 0
-        for _ in range(frames):
+        for f in range(frames):
+            eng.camera = pose(f)
             out = eng.render_frame()
         imgs[where.type] = out.cpu().numpy().astype(np.float64)
         rays[where.type] = eng.total_rays
@@ -953,6 +1010,325 @@ def phase_hybrid_end_to_end(dev):
         want = {"trace": per["trace"] * 4, "shade": per["shade"] * 4}
         if launches != want:
             raise AssertionError(f"{name}: launches {launches} != {want}")
+
+
+def flythrough_pose(k: int):
+    """The camera of suite row 5's k-th frame: ``orbit_camera(k / 8,
+    radius=300, height=48)`` (``benchmarks/suite.py:62``, 8 frames)."""
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+
+    return orbit_camera(k / FLY_FRAMES, **FLY_CAM)
+
+
+def denoised_settings(temporal: bool = True, use_denoiser: bool = True):
+    from vkrt_tpu_torch.config import RenderSettings
+
+    return RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_shadows=True,
+                          use_ao=True, use_gi=True, use_denoiser=use_denoiser,
+                          temporal_denoiser=temporal, corr_sampler=True)
+
+
+class DenoiserCalls:
+    """Records every call of ``models.denoiser.denoise_temporal`` and
+    ``denoise_gi`` (which ``hybrid_frame`` looks up at every call) while it
+    is installed: ``calls`` holds (the function, its arguments, its
+    result)."""
+
+    NAMES = ("denoise_temporal", "denoise_gi")
+
+    def __init__(self):
+        from vkrt_tpu_torch.models import denoiser as dn
+
+        self.module, self.calls = dn, []
+        self.real = {k: getattr(dn, k) for k in self.NAMES}
+
+    def __enter__(self):
+        def recorder(fn):
+            def record(*args):
+                out = fn(*args)
+                self.calls.append((fn, args, out))
+                return out
+            return record
+
+        for k, fn in self.real.items():
+            setattr(self.module, k, recorder(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.real.items():
+            setattr(self.module, k, fn)
+
+
+def to_cpu(x):
+    """A tensor, or a tuple of tensors (a DenoiserState), on the CPU."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, tuple):
+        return type(x)(*(to_cpu(y) for y in x))
+    return x
+
+
+def compare_denoised(name, card, cpu, quiet: bool = False) -> float:
+    """The card's denoiser output (filtered radiance and, from the temporal
+    denoiser, the new state) against the CPU's on the same inputs: every
+    float within atol 1e-5 + rtol 1e-4, the history's validity (length > 1)
+    equal. Returns the max abs error."""
+    import torch
+
+    if torch.is_tensor(card):  # denoise_gi: the filtered radiance alone
+        card, cpu = (card, None), (cpu, None)
+    fields = ("filtered",) + (type(card[1])._fields if card[1] is not None else ())
+    worst = 0.0
+    for field, a, b in zip(fields, (card[0],) + tuple(card[1] or ()),
+                           (cpu[0],) + tuple(cpu[1] or ())):
+        a, b = a.cpu().numpy(), b.numpy()
+        err = np.abs(a.astype(np.float64) - b)
+        worst = max(worst, float(err.max()))
+        bad = err > 1e-5 + 1e-4 * np.abs(b)
+        if bad.any():
+            raise AssertionError(f"{name}: {field} beyond atol 1e-5 + rtol 1e-4 on "
+                                 f"{int(bad.sum())} of {bad.size} elements (max {err.max():.3g})")
+    if card[1] is not None and not np.array_equal(card[1].hist_len.cpu().numpy() > 1.0,
+                                                  cpu[1].hist_len.numpy() > 1.0):
+        raise AssertionError(f"{name}: history validity differs")
+    if not quiet:
+        log(f"[denoised] {name}: card and CPU agree, max abs err {worst:.3g}")
+    return worst
+
+
+def phase_denoised_main_path(dev, results, city, card):
+    """Phase 4d: suite row 5 (``city_flythrough_denoised``) through
+    ``Engine``: the fly-through timed (2 warm-up frames, 3 batches of 8,
+    the camera at ``orbit_camera(k / 8, radius=300, height=48)`` before the
+    k-th frame of each), the launch counts (the denoiser adds none), the
+    profile of a frame and of the denoiser alone, one frame's denoiser
+    inputs filtered on the card and on the CPU, the history over static
+    frames, then the suite's ``rmse_vs_converged`` and
+    ``rmse_noisy_1frame`` (``benchmarks/suite.py:203-229``)."""
+    import torch
+
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.utils.metrics import rmse
+
+    t_phase = time.perf_counter()
+    eng = Engine(city, W, H, denoised_settings(), flythrough_pose(0), CLEAR)
+    per_frame = hybrid_launches(HYBRID_DEPTH, True)
+    best, launches, final = drive_engine(eng, per_frame, "denoised", pose=flythrough_pose)
+    for name in ("trace", "shade", "shade_albedo"):
+        results[name]["denoised_launches"] = launches[name]
+    final = final.cpu().numpy().astype(np.float64)
+    last = flythrough_pose(FLY_FRAMES - 1)
+    poses = iter(range(FLY_FRAMES))
+
+    def fly_frame():
+        eng.camera = flythrough_pose(next(poses))
+        return eng.render_frame()
+
+    profile = profile_calls(fly_frame, "denoised", 4, "frame")
+
+    # one frame's denoiser inputs (the next pose's), the denoiser alone on
+    # the card, then on the CPU with the same torch code
+    eng.camera = flythrough_pose(1)
+    with DenoiserCalls() as rec:
+        eng.render_frame()
+    fn, args, card_out = rec.calls[-1]
+    stage = profile_calls(lambda: fn(*args), "denoiser stage (denoise_temporal)")
+    t0 = time.perf_counter()
+    cpu_out = fn(*(to_cpu(a) for a in args))
+    cpu_s = time.perf_counter() - t0
+    err = compare_denoised(f"one frame's inputs, {W}x{H}", card_out, cpu_out)
+
+    # static frames at the last pose: the history grows frame by frame (the
+    # mean over the frame; background pixels never keep one)
+    eng.camera = last
+    lens = []
+    for _ in range(4):
+        eng.render_frame()
+        lens.append(float(eng.denoise_state.hist_len.mean()))
+    covered = float((eng.denoise_state.hist_len >= 4.0).float().mean())
+    log(f"[denoised] history over 4 static frames: mean length {lens}; {covered:.4f} of the "
+        f"pixels hold 4 frames")
+    if not all(b > a for a, b in zip(lens, lens[1:])):
+        raise AssertionError(f"the history does not grow over static frames: {lens}")
+
+    # the suite's accuracy columns at the last pose: 64 static frames with
+    # the denoiser off as the reference, one frame of it as the noisy input
+    ref_eng = Engine(city, W, H, denoised_settings(use_denoiser=False), last, CLEAR)
+    for _ in range(64):
+        ref = ref_eng.render_frame()
+    ref = ref.cpu().numpy().astype(np.float64)
+    noisy = Engine(city, W, H, denoised_settings(use_denoiser=False), last,
+                   CLEAR).render_frame().cpu().numpy().astype(np.float64)
+    acc = {"rmse_vs_converged": rmse(final, ref), "rmse_noisy_1frame": rmse(noisy, ref)}
+    log(f"[denoised] suite row 5 at {W}x{H} ({card}): best batch {best[0]:.4f} ms/frame, "
+        f"{best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame; launches a frame {per_frame}; "
+        f"device {profile['device_ms']:.4f} ms/frame, idle share {profile['idle_share']:.4f}; "
+        f"denoiser stage {stage['device_ms']:.4f} ms device, {stage['kernels_per_frame']:.0f} "
+        f"kernels; rmse_vs_converged {acc['rmse_vs_converged']:.6f}, rmse_noisy_1frame "
+        f"{acc['rmse_noisy_1frame']:.6f}; the CPU's denoiser on the same inputs {cpu_s:.1f} s")
+    results["denoised"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
+                           "rays_per_frame": best[2], "launches_per_frame": per_frame,
+                           "profile": profile, "denoiser_stage": stage,
+                           "card_vs_cpu_max_abs_err": err, **acc}
+    log(f"[denoised] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_denoised_end_to_end(dev):
+    """Phase 5e: denoised hybrid frames, kernels against plain versions: the
+    Cornell box and the small city at 160x120, depth 3, 4 frames with the
+    camera moving every frame, the temporal and the spatial-only denoiser.
+    Gates, frame by frame: the denoiser's noisy inputs (the GI radiance the
+    kernels produce) card against CPU through the display gate; the
+    denoiser on the card against the plain torch code on the CPU given the
+    card's own inputs and history, every float within atol 1e-5 + rtol
+    1e-4; and the filtered GI of the two pipelines through the display gate.
+    One ulp tie is exempt: the temporal denoiser boosts the variance while
+    the history length is below 4, and a length that is 4 in exact
+    arithmetic comes out of the bilinear reprojection as 4 +- an ulp, so
+    the card and the CPU may decide such a pixel either way. Each side's flipped
+    pixels must lie within 1e-4 of 4; from the first frame with a flip on,
+    the filtered GI and the final composite are reported, not gated. Rays
+    within 0.1%, the card's launches as in 5d."""
+    from vkrt_tpu_torch.ops import nrd
+    from vkrt_tpu_torch.scene import load_cornell, make_city
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+
+    def small_city(where):
+        return make_city(grid=SMALL_CITY_GRID, device=where)
+
+    def city_pose(f):
+        return orbit_camera(SMALL_CITY_CAM["t"] + 0.004 * f, radius=SMALL_CITY_CAM["radius"],
+                            height=SMALL_CITY_CAM["height"])
+
+    def box_pose(f):
+        return orbit_camera(0.002 * f, radius=15.0, height=0.5)
+
+    def gi(call):  # the GI radiance a denoiser call was given, (N,3) numpy
+        temporal = isinstance(call[1][0], tuple)  # denoise_temporal(state, packed, ...)
+        packed = call[1][1 if temporal else 0]
+        return nrd.unpack_radiance_and_norm_hit_dist(packed)[:, :3].cpu().numpy()
+
+    def filtered(call):
+        out = call[2][0] if isinstance(call[2], tuple) else call[2]
+        return out.cpu().numpy()
+
+    def boost_ties(card, cpu):
+        """Pixels whose variance boost (length < 4) the two sides decide
+        differently; raises unless each lies within 1e-4 of 4 on both."""
+        if not isinstance(card[2], tuple):
+            return 0
+        a, b = card[2][1].hist_len.cpu().numpy(), cpu[2][1].hist_len.numpy()
+        flip = (a < 4.0) != (b < 4.0)
+        if (np.abs(a[flip] - 4.0) >= 1e-4).any() or (np.abs(b[flip] - 4.0) >= 1e-4).any():
+            raise AssertionError("a variance boost differs away from the length-4 tie")
+        return int(flip.sum())
+
+    for label, make_scene, pose in (
+            ("Cornell", lambda where: load_cornell(device=where), box_pose),
+            (f"make_city(grid={SMALL_CITY_GRID})", small_city, city_pose)):
+        for temporal in (True, False):
+            name = (f"denoised ({'temporal' if temporal else 'spatial'}) hybrid {label} "
+                    f"160x120 depth {HYBRID_DEPTH} 4 moving frames")
+            with DenoiserCalls() as rec:
+                imgs, rays, launches, _ = render_both(dev, make_scene, pose,
+                                                      denoised_settings(temporal))
+            # render_both renders on the card first, then on the CPU
+            card, cpu = rec.calls[:4], rec.calls[4:]
+            if len(rec.calls) != 8 or card[0][1][1].device.type != dev.type:
+                raise AssertionError(f"{name}: {len(rec.calls)} denoiser calls, want 4 a device")
+            worst, ties, lines = 0.0, 0, []
+            for f, (c, p) in enumerate(zip(card, cpu)):
+                p99, div, rmse_, ok = gate_numbers(gi(c), gi(p))
+                if not ok:
+                    raise AssertionError(f"{name}: frame {f}'s noisy GI fails the display gate "
+                                         f"(p99 {p99:.3g}, diverged {div:.4f}, rmse {rmse_:.3g})")
+                plain = c[0](*(to_cpu(a) for a in c[1]))
+                worst = max(worst, compare_denoised(f"{name}, frame {f}", c[2], plain, True))
+                ties += boost_ties(c, p)
+                p99, div, rmse_, ok = gate_numbers(filtered(c), filtered(p))
+                lines.append(f"frame {f}: noisy GI p99 {gate_numbers(gi(c), gi(p))[0]:.3g}, "
+                             f"filtered p99 {p99:.3g} diverged {div:.4f}, boost ties {ties}")
+                if not ok and not ties:
+                    raise AssertionError(f"{name}: frame {f}'s filtered GI fails the display "
+                                         f"gate (p99 {p99:.3g}, diverged {div:.4f}, rmse "
+                                         f"{rmse_:.3g}) with no boost tie")
+            log(f"[e2e] {name}: " + "; ".join(lines) + f"; the card's denoiser on its own "
+                f"inputs equals the plain torch code's to {worst:.3g}")
+            display_gate(name, imgs, rays, gated=ties == 0)
+            per = hybrid_launches(HYBRID_DEPTH, False)
+            want = {"trace": per["trace"] * 4, "shade": per["shade"] * 4}
+            if launches != want:
+                raise AssertionError(f"{name}: launches {launches} != {want}")
+
+
+def with_alpha(scene):
+    """``scene`` (a city) with material 3 (the window grid) BLEND at alpha
+    0.5 and material 2 (plain grey) MASK at alpha 0.3 under cutoff 0.5,
+    which always punches through."""
+    mode = scene.mat_alpha_mode.clone()
+    base = scene.mat_base_color.clone()
+    cutoff = scene.mat_alpha_cutoff.clone()
+    mode[3], base[3, 3] = 2, 0.5
+    mode[2], base[2, 3], cutoff[2] = 1, 0.3, 0.5
+    return scene._replace(mat_alpha_mode=mode, mat_base_color=base, mat_alpha_cutoff=cutoff)
+
+
+def alpha_launches() -> dict:
+    """Kernel A's launches a frame with the alpha tracer: every trace is
+    1 + ``DEFAULT_ROUNDS`` launches (all rounds run, none is skipped), and
+    a frame of path mode at depth 4 traces 5 times (the start, 3 fused
+    pools, the last shadow rays), a hybrid frame at depth 3 too (the
+    G-buffer, the visibility pool, GI's start, fused pool and shadow rays);
+    kernel B is not launched (the general loop)."""
+    from vkrt_tpu_torch.ops.alpha import DEFAULT_ROUNDS
+
+    return {"trace": 5 * (1 + DEFAULT_ROUNDS), "shade": 0, "shade_albedo": 0}
+
+
+def phase_alpha(dev, results, city, card):
+    """Phase 5f: alpha-tested transparency on the card: the small city with
+    a BLEND and a MASK material, path mode at depth 4 and hybrid with
+    shadows, AO and GI, 160x120, 4 frames, card against CPU (display gate,
+    rays within 0.1%, kernel A's launches by the round design, kernel B's
+    0); then the full city with the same switch in hybrid mode at
+    1280x720, 2 warm-up frames and one timed batch of 8."""
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.ops.alpha import AlphaTracer
+    from vkrt_tpu_torch.scene import make_city
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+
+    t_phase = time.perf_counter()
+    per = alpha_launches()
+    hybrid = RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_gi=True,
+                            alpha_test=True, corr_sampler=True)
+    for label, settings in (
+            (f"path depth {CITY_DEPTH}", path_settings(CITY_DEPTH).replace(alpha_test=True)),
+            (f"hybrid shadows + AO + GI depth {HYBRID_DEPTH}", hybrid)):
+        imgs, rays, launches, _ = render_both(
+            dev, lambda where: with_alpha(make_city(grid=SMALL_CITY_GRID, device=where)),
+            orbit_camera(**SMALL_CITY_CAM), settings)
+        name = f"alpha {label}, make_city(grid={SMALL_CITY_GRID}) 160x120 4 frames"
+        display_gate(name, imgs, rays)
+        want = {"trace": per["trace"] * 4, "shade": 0}
+        log(f"[alpha] {name}: card launches {launches}")
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches} != {want}")
+
+    eng = Engine(with_alpha(city), W, H, hybrid, orbit_camera(**CITY_CAM), CLEAR)
+    if not isinstance(eng.tracer, AlphaTracer):
+        raise AssertionError("the alpha city did not get the alpha tracer")
+    best, launches, _ = drive_engine(eng, per, "alpha", batches_n=1)
+    results["trace"]["alpha_launches"] = launches["trace"]
+    profile = profile_frames(eng, "alpha")
+    log(f"[alpha] hybrid alpha city {W}x{H} ({card}): {best[0]:.4f} ms/frame, "
+        f"{best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame, launches a frame {per}")
+    results["alpha"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
+                        "rays_per_frame": best[2], "launches_per_frame": per,
+                        "profile": profile}
+    log(f"[alpha] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def sync(dev) -> None:
@@ -1393,10 +1769,14 @@ def main() -> int:
                                                                            city.scene)),
                         ("4c hybrid main path", lambda: phase_hybrid_main_path(dev, results,
                                                                                city.scene)),
+                        ("4d denoised main path",
+                         lambda: phase_denoised_main_path(dev, results, city.scene, card)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
                         ("5b city end to end", lambda: phase_city_end_to_end(dev)),
                         ("5c general loop", lambda: phase_general_loop(dev)),
                         ("5d hybrid end to end", lambda: phase_hybrid_end_to_end(dev)),
+                        ("5e denoised end to end", lambda: phase_denoised_end_to_end(dev)),
+                        ("5f alpha", lambda: phase_alpha(dev, results, city.scene, card)),
                         ("6 probes", lambda: phase_probes(dev, results, pools["shadow"],
                                                           city))):
         t0 = time.perf_counter()

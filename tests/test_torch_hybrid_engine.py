@@ -7,13 +7,16 @@
   within 0.1%, and the 8-bit image's mean within 0.25 of the golden's;
 * the engine's rules: the composite and ``view_accumulated``, a background
   of exactly the clear colour, switching modes, the max-frames early-out,
-  and the refusals (denoised GI, alpha test);
+  the denoiser's history (allocated with temporal denoised GI, kept across
+  a camera move, reallocated on a settings change) and the alpha tracer's
+  rebuild on ``alpha_test``;
 * the CLI: ``--mode hybrid`` is the default and its flags reach the
   settings; a PNG is written;
 * the loop choice and the shadow-lane sign: a tracer with ``with_seed`` and
   no ``anyhit_kill_capable`` (an alpha tracer's shape) takes the general loop
-  with positive shadow limits and is seeded for the visibility pool, and
-  the frame matches the JAX package's given the same kind of tracer."""
+  with positive shadow limits and is handed the JAX package's seeds at every
+  trace (the visibility pool and the GI chain's three sites), and the frame
+  matches the JAX package's given the same kind of tracer."""
 
 import json
 import os
@@ -34,11 +37,13 @@ from vkrt_tpu.ops.rng import tea as j_tea
 from vkrt_tpu.ops.trace import make_tracer as j_make_tracer
 from vkrt_tpu.utils.camera import Camera as JCamera, pixel_coords as j_pixel_coords, tile_perm
 from vkrt_tpu_torch.config import RenderSettings
-from vkrt_tpu_torch.engine import ALPHA_ERROR, Engine
-from vkrt_tpu_torch.models.hybrid import DENOISER_ERROR, hybrid_frame
+from vkrt_tpu_torch.engine import Engine
+from vkrt_tpu_torch.models.hybrid import hybrid_frame
 from vkrt_tpu_torch.models.post import to_u8_image
+from vkrt_tpu_torch.ops.alpha import AlphaTracer
+from vkrt_tpu_torch.ops.trace import make_tracer
 from vkrt_tpu_torch.scene import make_city, make_cornell_box
-from vkrt_tpu_torch.utils.camera import orbit_camera
+from vkrt_tpu_torch.utils.camera import Camera, orbit_camera, pixel_coords
 
 torch.set_num_threads(2)
 GOLDEN = json.load(open(os.path.join(os.path.dirname(__file__), "golden.json")))
@@ -153,19 +158,46 @@ def test_engine_modes_max_frames_and_refusals():
     eng = Engine(box, w, h, RenderSettings(rt_mode=1, stop_at_max_frames=True, max_frames=0))
     assert not eng.render_frame().any() and eng.total_rays == 0
 
-    # denoised GI is refused everywhere it could be asked for; without GI
-    # hybrid ignores use_denoiser, as the JAX engine does
-    with pytest.raises(NotImplementedError, match=DENOISER_ERROR):
-        Engine(box, w, h, RenderSettings(use_denoiser=True, use_gi=True))
-    with pytest.raises(NotImplementedError, match="hybrid denoiser is ported in a later PR"):
-        eng.update_settings(RenderSettings(use_denoiser=True, use_gi=True))
+    # denoised GI: the temporal denoiser's history exists exactly with
+    # temporal denoised GI in hybrid mode; a camera move keeps it (the frame
+    # counter restarts), a settings change reallocates it. Without GI hybrid
+    # ignores use_denoiser, as the JAX engine does
+    assert eng.denoise_state is None
+    eng = Engine(box, w, h, RenderSettings(use_denoiser=True, use_gi=True))
+    assert eng.denoise_state is not None and not eng.denoise_state.hist_len.any()
+    eng.render_frame()
+    eng.render_frame()
+    assert float(eng.denoise_state.hist_len.max()) == 2.0
+    eng.camera = Camera(eye=(0.2, 0.0, 15.0))
+    eng.render_frame()
+    assert eng.frame == 0 and float(eng.denoise_state.hist_len.max()) > 2.0
+    eng.update_settings(eng.settings.replace(temporal_denoiser=False))
+    assert eng.denoise_state is None and eng.frame == -1
+    eng.update_settings(eng.settings.replace(temporal_denoiser=True))
+    assert not eng.denoise_state.hist_len.any()
+    eng.resize(w, 16)
+    assert eng.denoise_state.hist_len.shape == (w * 16,)
+    for s in (RenderSettings(use_denoiser=True), RenderSettings(rt_mode=1, use_gi=True,
+                                                                use_denoiser=True)):
+        assert Engine(box, w, h, s).denoise_state is None
     assert torch.equal(first_frame(RenderSettings(use_denoiser=True)),
                        first_frame(RenderSettings()))
-    with pytest.raises(NotImplementedError, match=DENOISER_ERROR):
-        hybrid_frame(box, None, None, 0, None, CLEAR, width=w, height=h, depth=3,
-                     use_shadows=True, use_ao=True, use_gi=True, use_denoiser=True)
-    with pytest.raises(NotImplementedError, match=ALPHA_ERROR):
-        Engine(box, w, h, RenderSettings(alpha_test=True))
+    with pytest.raises(ValueError, match="whole frame"):  # pix without inv_perm
+        hybrid_frame(box, make_tracer(box), Camera().matrices(w, h, "cpu"), 0,
+                     torch.zeros((w * h, 4)), CLEAR, width=w, height=h, depth=2,
+                     use_shadows=False, use_ao=False, use_gi=True, use_denoiser=True,
+                     pix=pixel_coords(w, h))
+    # alpha_test: the tracer is rebuilt when it changes; an opaque scene
+    # keeps its plain tracer, so its frames do not change
+    eng = Engine(box, w, h, RenderSettings(alpha_test=True))
+    assert not isinstance(eng.tracer, AlphaTracer)
+    assert torch.equal(eng.render_frame(), first_frame(RenderSettings()))
+    glass = box._replace(mat_alpha_mode=torch.tensor([0, 0, 0, 0, 2], dtype=torch.int32))
+    eng = Engine(glass, w, h)
+    eng.update_settings(eng.settings.replace(alpha_test=True))
+    assert isinstance(eng.tracer, AlphaTracer)
+    eng.update_settings(eng.settings.replace(alpha_test=False))
+    assert not isinstance(eng.tracer, AlphaTracer)
 
 
 def test_app_hybrid_cli(tmp_path, monkeypatch):
@@ -228,15 +260,18 @@ def test_seeded_tracer_takes_the_general_loop_with_positive_limits(monkeypatch):
     _, j_acc, j_rays, _ = j_hybrid_frame(js, SeededTracer(jt, jlog), jm, 0,
                                          jnp.zeros((W * H, 4)), jnp.asarray(CLEAR), **kw)
     monkeypatch.setattr(tpt, "bounce_chain_packed", None)  # must not be reached
-    _, acc, rays = hybrid_frame(ts, SeededTracer(JaxTracer(jt), log), port_cam(jm), 0,
-                                torch.zeros((W * H, 4)), CLEAR, **kw)
+    _, acc, rays, _ = hybrid_frame(ts, SeededTracer(JaxTracer(jt), log), port_cam(jm), 0,
+                                   torch.zeros((W * H, 4)), CLEAR, **kw)
     assert float(rays) == float(j_rays)
     display_gate(acc.numpy().astype(np.float64), np.asarray(j_acc, np.float64))
-    # the same traces in the same order (the JAX general loop also seeds
-    # its tracer at every bounce: that half of the alpha path is not ported)
-    assert [k for k, _ in log if k != "seed"] == [k for k, _ in jlog if k != "seed"]
-    assert [k for k, _ in log].count("seed") == 1
+    # the same traces in the same order, each seeded as in the JAX package:
+    # the visibility pool, then the GI chain's start, fused pool and last any
+    assert [k for k, _ in log] == [k for k, _ in jlog]
+    assert [k for k, _ in log].count("seed") == 4
     assert log[1][0] == "seed" and torch.is_tensor(log[1][1])  # the visibility pool's seeds
+    for (k, seed), (_, j_seed) in zip(log, jlog):
+        if k == "seed":
+            np.testing.assert_array_equal(seed.numpy().view(np.uint32), np.asarray(j_seed))
     n = W * H
     fused = [lim for k, lim in log if k == "closest" and lim is not None and lim.shape[0] == 2 * n]
     assert fused and all((lim[n:] >= 0).all() for lim in fused)

@@ -14,7 +14,8 @@ engine's layout), depth 3, 3 frames, correlated sampler on and off:
 Gate: the display-domain gate of tests/test_accuracy_oracle.py (p99 <=
 1e-3, diverged (> 1e-2) < 1%, RMSE <= 1e-3 on the rest); total rays within
 0.1%. Plus Engine and app smoke on the city, ``orbit_camera``,
-``load_obj_scene`` and the ``alpha_test`` refusal."""
+``load_obj_scene`` and ``alpha_test`` on an opaque scene (no wrapper, the
+same frames)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -119,7 +120,7 @@ def test_engine_app_and_entry_points_on_the_city(tmp_path, glb_scene):
     from vkrt_tpu.utils.png import decode_png
     from vkrt_tpu_torch import app
     from vkrt_tpu_torch.config import RenderSettings
-    from vkrt_tpu_torch.engine import ALPHA_ERROR, Engine
+    from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.scene import load_scene, make_city
     from vkrt_tpu_torch.utils import obj as tobj
 
@@ -136,11 +137,13 @@ def test_engine_app_and_entry_points_on_the_city(tmp_path, glb_scene):
     glb = Engine(load_scene(glb_scene[0], device="cpu"), 32, 24,
                  RenderSettings(rt_mode=1, depth=2), cam.__class__(eye=(0.0, 0.0, 6.0)))
     assert glb.render(1).mean() > 10
-    # alpha test is refused, at construction and on a settings change
-    with pytest.raises(NotImplementedError, match=ALPHA_ERROR):
-        Engine(city, 32, 24, RenderSettings(rt_mode=1, alpha_test=True), cam)
-    with pytest.raises(NotImplementedError, match="alpha test is ported in a later PR"):
-        eng.update_settings(eng.settings.replace(alpha_test=True))
+    # alpha test, at construction and on a settings change: the city is
+    # opaque, so it keeps its plain tracer and renders the same frames
+    alpha = Engine(city, 32, 24, RenderSettings(rt_mode=1, depth=4, alpha_test=True), cam)
+    assert not hasattr(alpha.tracer, "with_seed")
+    assert np.array_equal(alpha.render(2), img)
+    eng.update_settings(eng.settings.replace(alpha_test=True))
+    assert not hasattr(eng.tracer, "with_seed") and eng.frame == -1
 
     out = tmp_path / "city.png"
     rc = app.main(["--procedural", "city", "--city-grid", "2", "--width", "32", "--height",

@@ -167,5 +167,5 @@ def test_port_imports_no_jax():
                  "benchmarks.ablate_kernel", "benchmarks.variants", "benchmarks.vpupeak",
                  "utils.smath", "utils.obj", "ops.texture", "ops.sampling", "ops.brdf",
                  "models.shading", "ops.nrd", "models.gbuffer", "models.hybrid",
-                 "models.post"):
+                 "models.post", "models.denoiser", "ops.alpha", "utils.metrics"):
         assert f"vkrt_tpu_torch.{name}" in names, name

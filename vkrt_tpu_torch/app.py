@@ -1,9 +1,11 @@
 """Headless CLI app (port of ``vkrt_tpu/app.py``): hybrid mode (the
-default, without the denoiser) or path mode.
+default; with ``--gi --denoiser`` its GI is denoised) or path mode;
+``--alpha-test`` turns on alpha-tested transparency in either.
 
 Usage:
     python -m vkrt_tpu_torch.app --procedural cornell --gi \\
         --width 1280 --height 720 --frames 16 --out out.png
+    python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --gi --denoiser
     python -m vkrt_tpu_torch.app --config config.json --mode path --spp 2 --depth 5
     python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --mode path --depth 4
 
@@ -43,6 +45,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no-shadows", action="store_true")
     p.add_argument("--no-ao", action="store_true")
     p.add_argument("--gi", action="store_true", help="enable hybrid GI")
+    p.add_argument("--denoiser", action="store_true", help="enable SVGF denoiser (GI)")
+    p.add_argument("--alpha-test", action="store_true",
+                   help="enable alpha-tested transparency (the reference's "
+                        "unwired any-hit shaders, finished; see ops/alpha.py)")
     p.add_argument("--view-accumulated", action="store_true")
     p.add_argument("--corr-sampler", action=argparse.BooleanOptionalAction,
                    default=RenderSettings().corr_sampler,
@@ -110,6 +116,8 @@ def main(argv=None) -> int:
         use_gi=args.gi,
         rt_mode=1 if args.mode == "path" else 0,
         view_accumulated=args.view_accumulated,
+        use_denoiser=args.denoiser,
+        alpha_test=args.alpha_test,
         corr_sampler=args.corr_sampler,
     )
     cam = Camera(

@@ -1,19 +1,23 @@
 """Engine: frame orchestration, progressive accumulation, invalidation
-(port of ``vkrt_tpu/engine.py``, both render modes without the denoiser):
-hybrid mode (the default, ``rt_mode`` 0: G-buffer, ray-traced shadows, AO
-and one-path GI) and path mode (``rt_mode`` 1). Untextured and
-baseColor-only scenes bounce through kernels A and B, other textured
-scenes through kernel A and the general shading loop.
+(port of ``vkrt_tpu/engine.py``): hybrid mode (the default, ``rt_mode`` 0:
+G-buffer, ray-traced shadows, AO and one-path GI, optionally denoised) and
+path mode (``rt_mode`` 1). Untextured and baseColor-only scenes bounce
+through kernels A and B, other textured scenes and alpha-tested ones
+(``alpha_test`` on a scene with a MASK or BLEND material) through kernel A
+and the general shading loop.
 
 Owns the scene, tracer, camera state, accumulation buffers, the hybrid
-G-buffer and the frame counter, and exposes ``render_frame()``. The reset
-rules:
+G-buffer, the denoiser's history and the frame counter, and exposes
+``render_frame()``. The reset rules:
 
 * ``update_frame``: bump the counter, reset when the camera changed
-  (hello_vulkan.cpp:1506-1521);
+  (hello_vulkan.cpp:1506-1521); the denoiser's history stays, since
+  reprojection is what carries it across a camera move;
 * ``reset_frame``: frame = -1 (hello_vulkan.cpp:1501-1504), so the next
   update makes it 0;
-* any settings change resets accumulation (main.cpp:103-104, 463-464);
+* any settings change resets accumulation (main.cpp:103-104, 463-464); a
+  change of a field in ``_BUFFER_FIELDS`` or a resize also reallocates the
+  buffers and the denoiser's history;
 * max-frames early-out: when limiting is on and frame >= maxFrames the
   frame is not re-rendered (hello_vulkan.cpp:1426-1430); hybrid mode
   renders once first when it has no G-buffer to show.
@@ -32,29 +36,19 @@ import torch
 
 from vkrt_tpu_torch.config import DEFAULT_CLEAR_COLOR, RenderSettings
 from vkrt_tpu_torch.models import post as post_mod
-from vkrt_tpu_torch.models.hybrid import DENOISER_ERROR, hybrid_frame
+from vkrt_tpu_torch.models import denoiser as dn
+from vkrt_tpu_torch.models.hybrid import hybrid_frame
 from vkrt_tpu_torch.models.pathtracer import pathtrace_frame
 from vkrt_tpu_torch.ops.rng import tea
 from vkrt_tpu_torch.ops.trace import make_tracer
 from vkrt_tpu_torch.scene import SceneTensors
 from vkrt_tpu_torch.utils.camera import Camera, pixel_coords, tile_perm, untile
 
-ALPHA_ERROR = "alpha test is ported in a later PR"
 # a change of any of these reallocates the buffers (the JAX engine's
 # re-jit list); the display and clamp knobs and the frame limit do not
 _BUFFER_FIELDS = ("samples", "depth", "rt_mode", "use_shadows", "use_ao", "use_gi",
                   "use_denoiser", "temporal_denoiser", "backend", "alpha_test",
                   "corr_sampler")
-
-
-def _check_settings(settings: RenderSettings) -> None:
-    """Refuse what the port does not render yet, rather than render
-    something else without a word. Like the JAX engine, hybrid mode
-    ignores ``use_denoiser`` without GI."""
-    if settings.rt_mode == 0 and settings.use_denoiser and settings.use_gi:
-        raise NotImplementedError(DENOISER_ERROR)
-    if settings.alpha_test:
-        raise NotImplementedError(ALPHA_ERROR)
 
 
 class Engine:
@@ -67,7 +61,6 @@ class Engine:
         camera: Camera = Camera(),
         clear_color=DEFAULT_CLEAR_COLOR,
     ):
-        _check_settings(settings)
         self.scene = scene
         self.device = scene.device
         self.width = width
@@ -75,7 +68,7 @@ class Engine:
         self.settings = settings
         self.camera = camera
         self.clear_color = tuple(float(c) for c in clear_color)
-        self.tracer = make_tracer(scene, settings.backend)
+        self.tracer = make_tracer(scene, settings.backend, alpha=settings.alpha_test)
         self.frame = -1
         self._ref_cam: Optional[Camera] = None
         self._total_rays = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -96,6 +89,11 @@ class Engine:
         self.accum = torch.zeros((n, 3), dtype=torch.float32, device=self.device)  # path
         self.accum_rt = torch.zeros((n, 4), dtype=torch.float32, device=self.device)  # hybrid
         self.gbuffer = None  # hybrid G-buffer of the last rendered frame
+        s = self.settings
+        self.denoise_state = (
+            dn.init_state(self.width, self.height, self.device)
+            if s.rt_mode == 0 and s.use_denoiser and s.use_gi and s.temporal_denoiser
+            else None)
 
     def _untile(self, out):
         if self.width % 32 == 0:
@@ -116,9 +114,9 @@ class Engine:
     def update_settings(self, settings: RenderSettings):
         if settings == self.settings:
             return
-        _check_settings(settings)
-        if settings.backend != self.settings.backend:
-            self.tracer = make_tracer(self.scene, settings.backend)
+        if (settings.backend, settings.alpha_test) != (self.settings.backend,
+                                                       self.settings.alpha_test):
+            self.tracer = make_tracer(self.scene, settings.backend, alpha=settings.alpha_test)
         realloc = any(getattr(settings, f) != getattr(self.settings, f) for f in _BUFFER_FIELDS)
         self.settings = settings
         if realloc:
@@ -150,10 +148,11 @@ class Engine:
                     self.scene, self.tracer, cam, self.frame, self.accum, self.clear_color,
                     samples=s.samples, **kw)
             else:
-                self.gbuffer, self.accum_rt, rays = hybrid_frame(
+                self.gbuffer, self.accum_rt, rays, self.denoise_state = hybrid_frame(
                     self.scene, self.tracer, cam, self.frame, self.accum_rt,
                     self.clear_color, use_shadows=s.use_shadows, use_ao=s.use_ao,
-                    use_gi=s.use_gi, use_denoiser=s.use_denoiser, **kw)
+                    use_gi=s.use_gi, use_denoiser=s.use_denoiser, perm=self._perm,
+                    inv_perm=self._inv_perm, denoise_state=self.denoise_state, **kw)
             self._total_rays = self._total_rays + rays
         if s.rt_mode == 1:
             out = post_mod.composite(self.accum, None, rt_mode=1,

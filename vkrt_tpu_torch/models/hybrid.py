@@ -11,24 +11,29 @@ the G-buffer of ``models/gbuffer.py``. Per pixel:
   (rgen:211-266), weighted by albedo for the diffuse lobe;
 * NRD REBLUR packing of radiance + normalized hit distance
   (rgen:273-281);
-* accumulation into the RGBA accum image (rgen:36-48).
+* accumulation into the RGBA accum image (rgen:36-48);
+* with ``use_denoiser`` and GI, the GI radiance filtered by
+  ``models/denoiser.py`` (temporal with a ``denoise_state``, else
+  spatial-only) replaces the accumulated RGB.
 
 On the card a frame runs kernel A three ways: the G-buffer's closest
 trace, one first-hit-kills launch for the shadow and AO rays of every
 pixel together, and the GI chain's traces; kernel B shades the GI chain
-where it shades the scene. The denoiser is not ported: asking for it
-raises.
+where it shades the scene. The denoiser is PyTorch and launches no kernel
+of its own.
 """
 
 from __future__ import annotations
 
 import torch
 
+from vkrt_tpu_torch.models import denoiser as dn
 from vkrt_tpu_torch.models.gbuffer import GBuffer, gbuffer_pass
 from vkrt_tpu_torch.models.pathtracer import BounceCarry, accumulate, bounce_chain
 from vkrt_tpu_torch.ops import nrd
 from vkrt_tpu_torch.ops.rng import MASK32, corr_draws, rnd, seed_pixels
 from vkrt_tpu_torch.ops.sampling import create_coordinate_system, sampling_hemisphere
+from vkrt_tpu_torch.utils.camera import retile, untile
 from vkrt_tpu_torch.utils.smath import dot, length, normalize, reflect
 
 AO_SAMPLES = 4        # raytraceHybrid.rgen:31
@@ -38,8 +43,6 @@ SHADOW_T_MIN = 0.1    # rgen:104
 # (column 1), the AO hemispheres (columns 2-3) and the GI lobe direction
 # (columns 2-3); the chain itself keys its bounces 1..depth-1
 CORR_KEY_SHADOW, CORR_KEY_AO, CORR_KEY_GI = 64, 65, 72
-
-DENOISER_ERROR = "the hybrid denoiser is ported in a later PR"
 
 
 def hybrid_corr_seed(frame: int) -> int:
@@ -177,22 +180,50 @@ def hybrid_effects(scene, tracer, gbuf: GBuffer, cam, seed, frame: int, accum_rt
 def hybrid_frame(scene, tracer, cam, frame: int, accum_rt, clear_color, *, width: int,
                  height: int, depth: int, use_shadows: bool, use_ao: bool, use_gi: bool,
                  use_denoiser: bool = False, clamp_weights=False, corr: bool = False,
-                 pix=None, seeds=None):
+                 pix=None, seeds=None, perm=None, inv_perm=None, denoise_state=None):
     """A hybrid frame: G-buffer pass + RT effects + accumulation
-    (main.cpp:506-561). Returns (gbuffer, new_accum, rays).
+    (main.cpp:506-561). Returns (gbuffer, new_accum, rays, denoise_state').
 
     ``pix``/``seeds``: optional pixel coordinates and RNG states (int32
     bits), e.g. tile-ordered with seeds of the original pixel ids (the
-    engine). ``use_denoiser`` with ``use_gi`` raises: the denoiser is not
-    ported, and a frame without it is not the frame asked for."""
-    if use_denoiser and use_gi:
-        raise NotImplementedError(DENOISER_ERROR)
+    engine). ``perm``/``inv_perm``: ``tile_perm``'s pair, set when ``pix``
+    is the whole frame in tile order: the denoiser then un-tiles its
+    image-space inputs and re-tiles the filtered radiance (reshape copies
+    when ``width % 32 == 0``, row gathers otherwise). The denoiser needs the
+    whole frame, so ``pix`` without ``inv_perm`` cannot take it (the JAX
+    package's row-band form waits for the sharded port).
+    ``denoise_state``: a ``DenoiserState`` selects the temporal
+    (reprojecting) denoiser; None the spatial-only filter. Without GI,
+    ``use_denoiser`` is ignored, as in the JAX package."""
     device = cam.view_inverse.device
     gbuf = gbuffer_pass(scene, tracer, cam, width, height, clear_color, pix=pix)
     seed = seed_pixels(width, height, frame, device) if seeds is None else seeds
-    new_accum, _, _, rays = hybrid_effects(
+    new_accum, diff_rad_hitd, _, rays = hybrid_effects(
         scene, tracer, gbuf, cam, seed, frame, accum_rt, depth=depth,
         use_shadows=use_shadows, use_ao=use_ao, use_gi=use_gi,
         clamp_weights=clamp_weights, corr=corr,
     )
-    return gbuf, new_accum, rays + float(gbuf.color.shape[0])  # + primary G-buffer rays
+    rays = rays + float(gbuf.color.shape[0])  # + primary G-buffer rays
+    new_state = denoise_state
+    if use_denoiser and use_gi:
+        if pix is not None and inv_perm is None:
+            raise ValueError("the denoiser needs the whole frame: pass inv_perm with pix")
+        structured = width % 32 == 0
+
+        def unperm(a):
+            if inv_perm is None:
+                return a
+            return untile(a, width, height) if structured else a[inv_perm]
+
+        if denoise_state is not None:
+            filtered, new_state = dn.denoise_temporal(
+                denoise_state, unperm(diff_rad_hitd), unperm(gbuf.norm_rough),
+                unperm(gbuf.view_z), unperm(gbuf.position[:, :3]), cam.view_proj,
+                width, height)
+        else:
+            filtered = dn.denoise_gi(unperm(diff_rad_hitd), unperm(gbuf.norm_rough),
+                                     unperm(gbuf.view_z), width, height)
+        if perm is not None:
+            filtered = retile(filtered, width, height) if structured else filtered[perm]
+        new_accum = torch.cat([filtered, new_accum[:, 3:4]], dim=-1)
+    return gbuf, new_accum, rays, new_state

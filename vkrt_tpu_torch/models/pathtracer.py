@@ -76,7 +76,9 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
     limits (kernel A's first-hit-kills lanes: only the verdict is read)
     when the tracer declares ``anyhit_kill_capable``, else positive ones;
     the last bounce traces its shadow rays alone (``any``). Dead lanes get
-    a degenerate ray (origin 1e30, d = 0, limit -1).
+    a degenerate ray (origin 1e30, d = 0, limit -1). A tracer with
+    ``with_seed`` (the alpha tracer) gets the seeds of the carry each trace
+    starts from, as the JAX loop's ``seeded`` hands them over.
 
     The ray counters count as the JAX loop does. Its deep-bounce form
     (depth - start_depth > 8) traces the fused pool on the last bounce too
@@ -89,14 +91,18 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
                           device=carry.origin.device)
     sh_sign = -1.0 if getattr(tracer, "anyhit_kill_capable", False) else 1.0
 
-    def closest(o, d, lim):
-        return tracer.closest(o, d, t_min, t_max, t_lim=lim)
+    def seeded(c):
+        # an alpha tracer draws its punch-through decisions from the lane seeds
+        return tracer.with_seed(c.seed) if hasattr(tracer, "with_seed") else tracer
+
+    def closest(c, o, d, lim):
+        return seeded(c).closest(o, d, t_min, t_max, t_lim=lim)
 
     def live(c, x, dead):
         return torch.where(c.active[:, None], x, dead)
 
-    hi_cur = closest(live(carry, carry.origin, 1e30), live(carry, carry.direction, 0.0),
-                     torch.where(carry.active, t_max, -1.0))
+    hi_cur = closest(carry, live(carry, carry.origin, 1e30),
+                     live(carry, carry.direction, 0.0), torch.where(carry.active, t_max, -1.0))
     c = carry._replace(rays_main=carry.rays_main + carry.active.float().sum())
     for d in range(start_depth, depth):
         trace_next = d < depth - 1
@@ -126,12 +132,12 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
             nx_o = torch.where(active_next[:, None], surf.world_pos, 1e30)
             nx_d = torch.where(active_next[:, None], bs.next_dir, 0.0)
             nx_lim = torch.where(active_next, t_max, -1.0)
-            res = closest(torch.cat([nx_o, surf.world_pos]), torch.cat([nx_d, sh_dir]),
+            res = closest(c, torch.cat([nx_o, surf.world_pos]), torch.cat([nx_d, sh_dir]),
                           torch.cat([nx_lim, sh_lim]))
             hi_next = type(res)(*(x[:n] for x in res))
             shadow_hit = res.hit[n:]
         else:
-            shadow_hit = tracer.any(surf.world_pos, sh_dir, t_min, sh_lim)
+            shadow_hit = seeded(c).any(surf.world_pos, sh_dir, t_min, sh_lim)
             hi_next = hi_cur
         shadow_hit = shadow_hit & do_shadow
 

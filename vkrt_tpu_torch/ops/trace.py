@@ -28,6 +28,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkrt_tpu_torch.ops.alpha import make_alpha_tracer
 from vkrt_tpu_torch.ops.intersect import (
     _DET_EPS, T_MIN, _cross, _dot, mt_block, safe_inv_dir,
 )
@@ -92,8 +93,20 @@ def trace_rays_bruteforce(tri_v0, tri_e1, tri_e2, o, d, t_lim,
                           t_min: float = T_MIN) -> RayHits:
     """The plain version of the trace kernel: ``(N,3)`` o and d, ``(N,)``
     t_lim. A first-hit-kills lane reports the closest hit, which is one of
-    the hits the kernel may report; its verdict is the same."""
+    the hits the kernel may report; its verdict is the same. Lanes that
+    cannot hit (d = 0, or a bound of at most ``t_min``: dead, parked and
+    skipped lanes) are not scanned; they get the miss record."""
     bound = t_lim.abs()
+    live = (bound > t_min) & (d != 0).any(dim=1)
+    if not bool(live.all()):
+        t = bound.clone()
+        tri = torch.full_like(t, -1, dtype=torch.int32)
+        u, v = torch.zeros_like(t), torch.zeros_like(t)
+        idx = live.nonzero()[:, 0]
+        if idx.numel():
+            h = trace_rays_bruteforce(tri_v0, tri_e1, tri_e2, o[idx], d[idx], t_lim[idx], t_min)
+            t[idx], tri[idx], u[idx], v[idx] = h
+        return RayHits(t, tri, u, v)
     ts, tris, us, vs = [], [], [], []
     for s in range(0, o.shape[0], RAY_CHUNK):
         sl = slice(s, s + RAY_CHUNK)
@@ -512,15 +525,19 @@ class Tracer:
         return self.trace(orig, direction, lim, t_min, any_hit=True).tri >= 0
 
 
-def make_tracer(scene: SceneTensors, backend: str = "auto"):
+def make_tracer(scene: SceneTensors, backend: str = "auto", alpha: bool = False):
     """The CUDA tracer for a scene on a CUDA device, brute force on the
-    CPU."""
+    CPU. ``alpha``: wrap it in the alpha tracer (``ops/alpha.py``) when the
+    scene has a MASK or BLEND material (opt-in, as in the JAX package: the
+    reference ships its any-hit shaders unwired)."""
     if backend != "auto":
         raise ValueError(f"unknown trace backend {backend!r} (only 'auto')")
     if scene.device.type == "cuda":
         from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer
 
-        return make_cuda_tracer(scene)
-    if scene.device.type != "cpu":
+        inner = make_cuda_tracer(scene)
+    elif scene.device.type == "cpu":
+        inner = Tracer(scene)
+    else:
         raise ValueError(f"no tracer for device {scene.device}")
-    return Tracer(scene)
+    return make_alpha_tracer(scene, inner) if alpha else inner

@@ -150,6 +150,28 @@ def untile(out: torch.Tensor, width: int, height: int, tile: int = 32) -> torch.
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
+def retile(img: torch.Tensor, width: int, height: int, tile: int = 32) -> torch.Tensor:
+    """Scanline order -> tile order (the inverse of ``untile``) as
+    reshape/transpose copies: exactly ``img[perm]``. Requires
+    ``width % tile == 0``."""
+    if width % tile:
+        raise ValueError(f"retile needs width % {tile} == 0, got {width}")
+    n_tx = width // tile
+    n_ty = height // tile
+    feats = img.shape[1:]
+    parts = []
+    full = n_ty * tile * width
+    if n_ty:
+        seg = img[:full].reshape(n_ty, tile, n_tx, tile, *feats)
+        # (ty, y_in, tx, x_in) -> (ty, tx, y_in, x_in)
+        parts.append(seg.transpose(1, 2).reshape(full, *feats))
+    rem = height - n_ty * tile
+    if rem:
+        seg = img[full:].reshape(rem, n_tx, tile, *feats)
+        parts.append(seg.transpose(0, 1).reshape(rem * width, *feats))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def generate_rays(cam: CameraMatrices, width: int, height: int, jitter, pix=None):
     """Primary rays exactly as raytrace.rgen:44-55.
 
