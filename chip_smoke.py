@@ -62,6 +62,21 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    suite's ``rmse_vs_converged`` (the last fly-through frame against 64
    static frames with the denoiser off at its pose) and
    ``rmse_noisy_1frame``, by ``utils/metrics.rmse``;
+4e. suite row 8 (``sponzoid_disk_pathtrace``) as a scene that moves: the
+   PNG sponzoid (``utils/sponzoid.py``, tess 4, 161,920 triangles, every
+   texture decoded at full size) loaded as an ``InstancedScene`` into
+   ``Engine`` at 1280x720, path mode, spp 1, depth 3, correlated sampler
+   on, eye (0, 6, 26) looking at (0, 5, 0): static, then animated (the
+   largest primitive moved before every frame by ``set_node_transform``,
+   x += 0.02 (f + 1)), each 2 warm-up frames and 3 timed batches of 8;
+   kernel A 4 launches a frame and kernel B none (the general loop); the
+   repose's host ms (steady state without the first) and the rows it
+   rewrites; no native SAH build after a repose; torch.profiler lines of
+   both; then, after the last pose, kernel A over the refit tables against
+   a fresh ``build_bvh`` of that pose: (t, tri, u, v) equal as uint32 on
+   the frame's 921,600 primaries and the first bounce's 921,600 rays, the
+   shadow verdicts equal, and kernel A's time on the primaries over both
+   tables beside their bounds;
 5c. the general shading loop on the card: a scene built in memory with
    baseColor, metallic-roughness, emissive and normal-map textures (numpy
    images, no file) at 160x120, depth 4, 4 frames on the card and on the
@@ -89,6 +104,19 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    (5 traces of 1 + 4 punch rounds each; every round runs) and kernel B
    none (the general loop); then the full city with the same switch in
    hybrid mode at 1280x720, 2 warm-up frames and one timed batch of 8;
+5g. scenes that move end to end: the two cubes of tests/test_instances.py
+   as an ``InstancedScene`` on the card and on the CPU, 160x120, 4 frames,
+   ``set_node_transform`` of the right cube, 4 more frames: the display
+   gate before and after the repose in path mode at depth 3 (kernels A and
+   B: 6 and 3 launches a frame) and in hybrid mode with GI (6 and 2), then
+   the cubes BLEND at 0.5 through the alpha tracer, reposed (kernel A 20
+   launches a frame, B none);
+5h. the app on the card (``app.main`` in this process): ``--scene`` the
+   sponzoid at 320x180 with ``--orbit --stats --save-state`` (a PNG a
+   frame, the stats JSON), ``--save-state`` then ``--load-state`` resuming
+   the frame counter, ``--trace-dir`` (a Chrome trace holding the
+   ``pathtrace`` label and kernel A), every ``--backend`` on Cornell (equal
+   images) and ``--interactive`` on a script;
 6. the trace probes (``vkrt_tpu_torch.benchmarks``) on Cornell and on
    ``make_city(grid=96)`` (143,568 triangles, the scene of 3b and 4b, built
    once) at 1280x720: micro_trace
@@ -121,13 +149,20 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    kernel A's first design) on the same rays, the visits a ray and the SIMT
    efficiency of both walks, and both bounds.
 
+7. the port's suite (``vkrt_tpu_torch.benchmarks.suite``), rows 1, 2 and 7
+   at 1280x720 and 8 frames, one JSON line each (rows 3-5 are phases
+   4b-4d, row 8 is 4e).
+
 The last lines are a JSON object of the kernels (each with its time, its
 plain version's time, its bound, the one PyTorch call's time where one
 computes the same function and its launches on its path; ``trace`` and
 ``shade`` count Cornell's main path in ``launches``, the city's in
 ``city_launches``, the hybrid path's in ``hybrid_launches`` and the
 denoised fly-through's in ``denoised_launches``, as does ``shade_albedo``;
-``trace``'s ``alpha_launches`` counts phase 5f's full-size alpha run), the
+``trace``'s ``alpha_launches`` counts phase 5f's full-size alpha run, its
+``sponzoid_launches`` and ``sponzoid_animated_launches`` phase 4e's static
+and animated runs, and ``cubes_launches`` / ``cubes_hybrid_launches`` of
+``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card), the
 card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -176,6 +211,8 @@ FP32_INSTR_PER_S = FP32_FLOPS / 2
 # is a fused multiply-add
 SLAB_OPS, MT_OPS = 26, 52
 PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
+# the engine's pass labels (utils/profiling.pass_label around a frame)
+PASS_LABELS = ("pathtrace", "hybrid")
 
 
 def log(msg: str) -> None:
@@ -547,22 +584,30 @@ def hybrid_launches(depth: int, albedo: bool) -> dict:
             "shade_albedo": depth - 1 if albedo else 0}
 
 
-def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3):
+def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3,
+                 step=None):
     """A main path: 2 warm-up frames, then ``batches_n`` batches of 8 frames
     timed with CUDA events, with the launch counters set to 0 just before
     and read just after. Each counter must grow by ``per_frame`` a frame
     (keys trace, shade, shade_albedo). ``pose``: camera of the k-th frame
     of the warm-up or of a batch (a fly-through: ``eng.camera`` is set
-    before each frame), None for a fixed camera. Returns (best batch
-    (ms/frame, Mrays/s, rays/frame), launches, the last frame's image)."""
+    before each frame), None for a fixed camera. ``step``: called with the
+    run's frame index before each frame (an animated scene's re-pose), its
+    time inside the timed batches. Returns (best batch (ms/frame, Mrays/s,
+    rays/frame), launches, the last frame's image)."""
     import torch
 
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
+    count = [0]
+
     def frame(k):
         if pose is not None:
             eng.camera = pose(k)
+        if step is not None:
+            step(count[0])
+        count[0] += 1
         return eng.render_frame()
 
     trace_kernel.launches = shade.launches = shade.albedo_launches = 0
@@ -631,8 +676,12 @@ def profile_calls(fn, label: str, calls: int = 4, unit: str = "call") -> dict:
             fn()
         torch.cuda.synchronize()
     events = prof.events()
+    # device kernels only: the engine's pass labels (record_function ranges)
+    # also appear on the device timeline, as user annotations spanning a frame
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.name not in PASS_LABELS)
     if not spans:
         raise AssertionError(f"{label}: the profiler saw no device kernel")
     by, other = {"kernel A": 0.0, "kernel B": 0.0, "other": 0.0}, {}
@@ -698,15 +747,21 @@ def phase_city_main_path(dev, results, city):
 
 
 class PoolRecorder:
-    """A tracer that keeps the last first-hit-kills pool traced through it
-    (``any``: in a hybrid frame on a scene kernel B shades, the visibility
-    pool alone) and passes every call on to kernel A's tracer."""
+    """A tracer that keeps what is traced through it and passes every call
+    on to kernel A's tracer: ``pool``, the last first-hit-kills pool of
+    ``any`` (in a hybrid frame on a scene kernel B shades, the visibility
+    pool alone), and ``pools``, every (o, d, t_lim, t_min) of ``closest``
+    (in a general-loop frame: the primaries, then the fused bounce and
+    shadow pools)."""
+
+    anyhit_kill_capable = True
 
     def __init__(self, inner):
-        self.inner, self.pool = inner, None
+        self.inner, self.pool, self.pools = inner, None, []
 
-    def closest(self, *args, **kw):
-        return self.inner.closest(*args, **kw)
+    def closest(self, orig, direction, t_min, t_max, t_lim=None):
+        self.pools.append((orig, direction, t_lim, t_min))
+        return self.inner.closest(orig, direction, t_min, t_max, t_lim=t_lim)
 
     def trace_block(self, *args, **kw):
         return self.inner.trace_block(*args, **kw)
@@ -799,6 +854,179 @@ def phase_hybrid_main_path(dev, results, city):
                          "pool_ms": ms, "pool_plain_ms": plain_ms, "pool_bound_ms": pool_bound[0],
                          "pool_bound_by": pool_bound[1]}
     log(f"[hybrid] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+SPONZOID_DEPTH = 3
+# the app's renders of the sponzoid (phase 5h)
+APP_W, APP_H = 320, 180
+
+
+def general_launches(depth: int) -> dict:
+    """Launches a path-mode frame of the general loop makes (a scene with
+    normal maps: kernel A and PyTorch shading): kernel A depth + 1 times
+    (the primaries, depth - 1 fused bounce and shadow pools, the last
+    shadow rays), kernel B none."""
+    return {"trace": depth + 1, "shade": 0, "shade_albedo": 0}
+
+
+def sponzoid_instanced(dev):
+    """The PNG sponzoid (suite row 8's asset, tess 4) as an InstancedScene
+    on ``dev``; every texture must decode at full size."""
+    from vkrt_tpu_torch.benchmarks.suite import ASSET_DIR, MIN_TEXTURE_PX, SPONZOID_TESS
+    from vkrt_tpu_torch.scene_instances import build_instanced
+    from vkrt_tpu_torch.utils.gltf import parse_gltf
+    from vkrt_tpu_torch.utils.sponzoid import sponzoid_path
+
+    t0 = time.perf_counter()
+    path = sponzoid_path(str(ASSET_DIR), tess=SPONZOID_TESS, texture_format="png")
+    doc = parse_gltf(path)
+    sizes = [tuple(im.data.shape[:2]) for im in doc.images]
+    if min(min(s) for s in sizes) < MIN_TEXTURE_PX:
+        raise AssertionError(f"sponzoid textures decoded at {sizes}")
+    inst = build_instanced(doc, device=dev)
+    log(f"[sponzoid] {path}: {inst.scene.num_tris} triangles in {inst.num_nodes} primitives "
+        f"{[e - s for s, e in inst.prim_ranges]}, {inst.scene.num_lights} lights, textures "
+        f"{sizes}; written, parsed and uploaded in {time.perf_counter() - t0:.2f} s")
+    return path, inst
+
+
+def phase_sponzoid(dev, results, card):
+    """Phase 4e: suite row 8 (``sponzoid_disk_pathtrace``) as an
+    InstancedScene through ``Engine``: static, then animated (the largest
+    primitive moved every frame by ``set_node_transform``, x += 0.02 (f +
+    1)), each 2 warm-up frames and 3 timed batches of 8; kernel A's
+    launches; the repose's host ms and rows; no SAH build after a repose;
+    profiles; then kernel A on the refit tables against a fresh build of
+    the last pose on the frame's primaries and one bounce's rays."""
+    import torch
+
+    from vkrt_tpu_torch import scene_instances as si
+    from vkrt_tpu_torch.benchmarks.suite import SPONZOID_CAMERA
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.ops.cuda import trace as ktrace
+    from vkrt_tpu_torch.ops.cuda.shade import kernel_shading_available
+    from vkrt_tpu_torch.ops.trace import trace_rays_bvh_ordered
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    t_phase = time.perf_counter()
+    path, inst = sponzoid_instanced(dev)
+    t0 = time.perf_counter()
+    eng = Engine(inst, W, H, path_settings(SPONZOID_DEPTH), Camera(**SPONZOID_CAMERA), CLEAR)
+    bvh0 = eng.tracer.bvh
+    log(f"[sponzoid] Engine set-up with its BVH {time.perf_counter() - t0:.2f} s: "
+        f"{bvh0.nodes.shape[0]} child-box records, depth {bvh0.depth}")
+    if kernel_shading_available(eng.scene):
+        raise AssertionError("the sponzoid would take the packed loop, not the general loop")
+    per = general_launches(SPONZOID_DEPTH)
+    static, launches, _ = drive_engine(eng, per, "sponzoid")
+    results["trace"]["sponzoid_launches"] = launches["trace"]
+    static_prof = profile_frames(eng, "sponzoid")
+
+    node = int(np.argmax([e - s for s, e in inst.prim_ranges]))
+    reposes, builds = [], [0]
+    rows0 = dict(ktrace.refit_bvh.rows)
+    real_build = ktrace.native.build_sah_bvh
+
+    def counting_build(*args, **kw):
+        builds[0] += 1
+        return real_build(*args, **kw)
+
+    def repose(f):
+        t0 = time.perf_counter()
+        eng.set_node_transform(node, translation(0.02 * (f + 1), 0.0, 0.0))
+        reposes.append((time.perf_counter() - t0) * 1e3)
+
+    # the repose's two parts, timed where set_node_transform calls them:
+    # re-bake + splice (repose) and the refit (repose_tracer)
+    parts = {"repose": [], "repose_tracer": []}
+    real_parts = {k: getattr(si, k) for k in parts}
+
+    def timed_part(name):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = real_parts[name](*args, **kw)
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    ktrace.native.build_sah_bvh = counting_build
+    for k in parts:
+        setattr(si, k, timed_part(k))
+    try:
+        anim, launches, _ = drive_engine(eng, per, "sponzoid animated", step=repose)
+        anim_prof = profile_calls(lambda: (repose(len(reposes)), eng.render_frame()),
+                                  "sponzoid animated", unit="frame")
+    finally:
+        ktrace.native.build_sah_bvh = real_build
+        for k, fn in real_parts.items():
+            setattr(si, k, fn)
+    if builds[0]:
+        raise AssertionError(f"{builds[0]} native SAH builds ran after a repose")
+    results["trace"]["sponzoid_animated_launches"] = launches["trace"]
+    rows = {k: (ktrace.refit_bvh.rows[k] - rows0[k]) / len(reposes) for k in rows0}
+    steady = np.asarray(reposes[1:])
+    lo, hi = inst.prim_ranges[node]
+    log(f"[sponzoid] repose of primitive {node} ({hi - lo} of {inst.scene.num_tris} "
+        f"triangles), {len(reposes)} reposes: first {reposes[0]:.3f} ms, steady state "
+        f"mean {steady.mean():.3f} ms, min {steady.min():.3f}, max {steady.max():.3f} "
+        f"(host clock: re-bake, refit, splice); rows rewritten a repose {rows} of "
+        f"{bvh0.nodes.shape[0]} records, {bvh0.tris.shape[0]} triangle records, "
+        f"{bvh0.threaded.shape[0]} threaded rows; no SAH build ({card})")
+    split = {k: float(np.mean(v[1:])) for k, v in parts.items()}
+    log(f"[sponzoid] the repose's parts, steady state mean: re-bake + splice "
+        f"{split['repose']:.3f} ms, refit {split['repose_tracer']:.3f} ms (host clock)")
+
+    # after the last pose: kernel A on the refit tables against a fresh build
+    rec = PoolRecorder(eng.tracer)
+    eng.tracer = rec
+    eng.render_frame()
+    eng.tracer = rec.inner
+    refit = rec.inner.bvh
+    t0 = time.perf_counter()
+    fresh = ktrace.build_bvh(eng.scene, eng.instances.tri_arrays())
+    build_s = time.perf_counter() - t0
+    n = W * H
+    po, pd, plim, pt = rec.pools[0]
+    bo, bd, blim, bt = rec.pools[1]
+    if po.shape[0] != n or bo.shape[0] != 2 * n:
+        raise AssertionError(f"pools of {po.shape[0]} and {bo.shape[0]} lanes")
+    for name, (o, d, lim, tm) in (("primaries", (po, pd, plim, pt)),
+                                  ("bounce 1", (bo[:n], bd[:n], blim[:n], bt))):
+        a = ktrace.trace_kernel(refit, eng.scene, o, d, lim, tm)
+        b = ktrace.trace_kernel(fresh, eng.scene, o, d, lim, tm)
+        check_equal(f"sponzoid {name}, refit vs fresh build (as uint32)",
+                    *([x.view(torch.int32) for x in h] for h in (a, b)))
+        log(f"[sponzoid] {name}: {o.shape[0]} lanes, {int((a.tri >= 0).sum())} hits, "
+            f"(t, tri, u, v) equal as uint32, refit tables vs a fresh build_bvh")
+    sh = slice(n, 2 * n)
+    a = ktrace.trace_kernel(refit, eng.scene, bo[sh], bd[sh], blim[sh], bt)
+    b = ktrace.trace_kernel(fresh, eng.scene, bo[sh], bd[sh], blim[sh], bt)
+    if not torch.equal(a.tri >= 0, b.tri >= 0):
+        raise AssertionError("sponzoid shadow verdicts differ between refit and fresh tables")
+    # kernel A on the primaries, both tables, against their bounds
+    times = {}
+    for name, tables in (("refit", refit), ("fresh", fresh)):
+        ms = cuda_ms(lambda: ktrace.trace_kernel(tables, eng.scene, po, pd, plim, pt))
+        _, counts = trace_rays_bvh_ordered(tables, po, pd, plim, pt, count=True)
+        b_ms, b_by = trace_bound(walk_tables(tables), n, counts)
+        times[name] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "slab_tests": float(counts.nodes.float().mean()),
+                       "triangle_tests": float(counts.leaves.float().mean())}
+        log(f"[sponzoid] kernel A on the primaries, {name} tables: {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {times[name]['slab_tests']:.2f} slab and "
+            f"{times[name]['triangle_tests']:.2f} triangle tests a ray)")
+    log(f"[sponzoid] fresh build_bvh of the last pose: {build_s:.2f} s (host)")
+    log(f"[sponzoid] {W}x{H} path spp 1 depth {SPONZOID_DEPTH} ({card}): static "
+        f"{static[0]:.4f} ms/frame {static[1]:.4f} Mrays/s; animated {anim[0]:.4f} ms/frame "
+        f"{anim[1]:.4f} Mrays/s; {static[2]:.0f} rays/frame")
+    results["sponzoid"] = {
+        "ms_per_frame": static[0], "mrays_per_s": static[1], "rays_per_frame": static[2],
+        "animated_ms_per_frame": anim[0], "animated_mrays_per_s": anim[1],
+        "repose_first_ms": reposes[0], "repose_steady_ms": float(steady.mean()),
+        "repose_parts_ms": split,
+        "rows_per_repose": rows, "launches_per_frame": per, "profile": static_prof,
+        "animated_profile": anim_prof, "primaries": times}
+    log(f"[sponzoid] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def gate_numbers(a, b):
@@ -1331,6 +1559,197 @@ def phase_alpha(dev, results, city, card):
     log(f"[alpha] phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
+def cubes_doc(alpha: bool = False):
+    """Two unit cubes at x = -3 and x = 3 (tests/test_instances.py's
+    document), one grey material (BLEND at alpha 0.5 with ``alpha``) and a
+    point light above them."""
+    from vkrt_tpu_torch.utils import gltf as gltf_mod
+
+    p = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                  [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float32)
+    quads = [(4, 5, 6, 7), (1, 0, 3, 2), (5, 1, 2, 6), (0, 4, 7, 3), (7, 6, 2, 3), (0, 1, 5, 4)]
+    idx = np.asarray([i for a, b, c, d in quads for i in (a, b, c, a, c, d)], np.uint32)
+    prims = []
+    for x in (-3.0, 3.0):
+        prims.append(gltf_mod.GltfPrimitiveInstance(
+            positions=p, indices=idx, normals=None, tangents=None, uvs=None, material=0,
+            world_matrix=translation(x, 0.0, 0.0)))
+    mat = gltf_mod.GltfMaterial(np.array([0.8, 0.8, 0.8, 0.5 if alpha else 1.0], np.float32),
+                                metallic_factor=0.0, alpha_mode=2 if alpha else 0)
+    light = gltf_mod.GltfLight(np.array([0, 8, 0.0], np.float32), np.ones(3, np.float32),
+                               60.0, 0)
+    return gltf_mod.GltfDocument(primitives=prims, materials=[mat], lights=[light], images=[])
+
+
+def translation(x, y, z):
+    m = np.eye(4)
+    m[:3, 3] = (x, y, z)
+    return m
+
+
+def phase_instances_end_to_end(dev, results):
+    """Phase 5g: the instanced cubes on the card against the CPU, 4 frames,
+    then ``set_node_transform`` of the right cube and 4 more frames: the
+    display gate before and after the repose, in path mode through kernels
+    A and B and in hybrid mode with GI; then the alpha tracer (the cubes
+    BLEND at 0.5, path mode, the general loop) reposed the same way."""
+    import torch
+
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.ops.alpha import DEFAULT_ROUNDS, AlphaTracer
+    from vkrt_tpu_torch.ops.cuda.shade import shade
+    from vkrt_tpu_torch.ops.cuda.trace import CudaTracer, trace_kernel
+    from vkrt_tpu_torch.scene_instances import build_instanced
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    cam = Camera(eye=(0.0, 0.0, 12.0), center=(0.0, 0.0, 0.0))
+    move = translation(3.0, 1.5, -4.0)
+    hybrid = RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_gi=True,
+                            corr_sampler=True)
+    # the general loop's DEPTH + 1 traces a frame, each 1 + DEFAULT_ROUNDS launches
+    per_alpha = {"trace": (DEPTH + 1) * (1 + DEFAULT_ROUNDS), "shade": 0}
+    for label, settings, alpha, per in (
+            (f"path depth {DEPTH}", path_settings(DEPTH), False, path_launches(DEPTH, False)),
+            (f"hybrid GI depth {HYBRID_DEPTH}", hybrid, False,
+             hybrid_launches(HYBRID_DEPTH, False)),
+            (f"alpha path depth {DEPTH}", path_settings(DEPTH).replace(alpha_test=True), True,
+             per_alpha)):
+        imgs = {"before": {}, "after": {}}
+        rays = {"before": {}, "after": {}}
+        launches = None
+        for leg, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            eng = Engine(build_instanced(cubes_doc(alpha), device=where), 160, 120, settings,
+                         cam, CLEAR)
+            trace_kernel.launches = shade.launches = 0
+            for stage in ("before", "after"):
+                if stage == "after":
+                    eng.set_node_transform(1, move)
+                    if eng.frame != -1:
+                        raise AssertionError("set_node_transform did not reset the frame")
+                r0 = eng.total_rays
+                for _ in range(4):
+                    out = eng.render_frame()
+                imgs[stage][leg] = out.cpu().numpy().astype(np.float64)
+                rays[stage][leg] = eng.total_rays - r0
+            inner = eng.tracer.inner if alpha else eng.tracer
+            if alpha and not isinstance(eng.tracer, AlphaTracer):
+                raise AssertionError("the BLEND cubes did not get the alpha tracer")
+            if leg == "cuda":
+                launches = {"trace": trace_kernel.launches, "shade": shade.launches}
+                if not isinstance(inner, CudaTracer):
+                    raise AssertionError(f"the card's tracer is {type(inner).__name__}")
+        for stage in ("before", "after"):
+            display_gate(f"cubes {label} 160x120, 4 frames {stage} the repose", imgs[stage],
+                         rays[stage])
+        moved = np.abs(imgs["after"]["cuda"] - imgs["before"]["cuda"]).max()
+        if moved < 1e-3:
+            raise AssertionError(f"cubes {label}: the repose changed nothing ({moved})")
+        want = {k: per[k] * 8 for k in ("trace", "shade")}
+        log(f"[instances] cubes {label}: card launches over 8 frames {launches}")
+        if launches != want:
+            raise AssertionError(f"cubes {label}: launches {launches} != {want}")
+        if not alpha:
+            key = "cubes_launches" if settings.rt_mode == 1 else "cubes_hybrid_launches"
+            results["trace"][key] = launches["trace"]
+            results["shade"][key] = launches["shade"]
+
+
+def phase_app(dev):
+    """Phase 5h: the app on the card, in this process (``app.main``): the
+    sponzoid by ``--scene`` with ``--orbit --stats --save-state`` (a PNG a
+    frame); ``--save-state`` then ``--load-state`` resuming the frame
+    counter; ``--trace-dir``; every ``--backend`` (equal images); and
+    ``--interactive`` on a script."""
+    import contextlib
+    import io
+    import json as _json
+    import os
+    from pathlib import Path
+
+    from vkrt_tpu_torch import app
+    from vkrt_tpu_torch.benchmarks.suite import ASSET_DIR, SPONZOID_TESS
+    from vkrt_tpu_torch.utils.png import decode_png
+    from vkrt_tpu_torch.utils.sponzoid import sponzoid_path
+
+    work = Path("vkrt_tpu_torch/build/app_smoke")
+    work.mkdir(parents=True, exist_ok=True)
+    gltf = sponzoid_path(str(ASSET_DIR), tess=SPONZOID_TESS, texture_format="png")
+
+    def run(args, stdin=""):
+        out, err = io.StringIO(), io.StringIO()
+        old_stdin = sys.stdin
+        sys.stdin = io.StringIO(stdin)
+        try:
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = app.main(["--device", dev.type] + [str(a) for a in args])
+        finally:
+            sys.stdin = old_stdin
+        if rc != 0:
+            raise AssertionError(f"app {args} exited {rc}: {out.getvalue()}{err.getvalue()}")
+        return out.getvalue(), err.getvalue()
+
+    spz = ["--scene", gltf, "--mode", "path", "--width", APP_W, "--height", APP_H,
+           "--lookat", 0, 5, 0]
+    t0 = time.perf_counter()
+    out, err = run(spz + ["--frames", 3, "--orbit", "--orbit-radius", 20, "--orbit-height", 6,
+                          "--stats", "--save-state", work / "orbit.npz",
+                          "--out", work / "fly.png"])
+    stats = _json.loads(err.strip().splitlines()[-1])
+    for f in range(3):
+        img = decode_png((work / f"fly_{f:04d}.png").read_bytes())
+        if img.shape[:2] != (APP_H, APP_W) or img[..., :3].std() < 5.0:
+            raise AssertionError(f"orbit frame {f}: {img.shape}, std {img[..., :3].std()}")
+    if stats["frames"] != 3 or not (work / "orbit.npz").exists():
+        raise AssertionError(f"--stats/--save-state: {stats}")
+    log(f"[app] --scene sponzoid --orbit --stats --save-state: 3 PNGs, stats {stats}")
+    still = spz + ["--eye", 0, 6, 26, "--frames", 2]
+    run(still + ["--save-state", work / "still.npz", "--out", work / "still.png"])
+    out, _ = run(still + ["--load-state", work / "still.npz", "--out", work / "still2.png"])
+    if "ok, frame 1" not in out or "frame counter 3" not in out:
+        raise AssertionError(f"--load-state did not resume the frame counter:\n{out}")
+    log("[app] --save-state after 2 frames, --load-state + 2 frames: resumed at frame 1, "
+        "ended at frame counter 3")
+    trace_dir = work / "trace"
+    run(["--procedural", "cornell", "--mode", "path", "--width", 64, "--height", 48,
+         "--frames", 2, "--trace-dir", trace_dir, "--out", work / "traced.png"])
+    traces = sorted(trace_dir.glob("*.json"))
+    # the engine's pass label, and on the card kernel A's launches
+    want = ("pathtrace",) + (("trace_kernel",) if dev.type == "cuda" else ())
+    if not traces or not all(w in traces[-1].read_text() for w in want):
+        raise AssertionError(f"--trace-dir wrote no trace holding {want}: {traces}")
+    log(f"[app] --trace-dir: {traces[-1].name}, {os.path.getsize(traces[-1])} bytes")
+    imgs = {}
+    for backend in ("auto", "bruteforce", "bvh", "pallas"):
+        png = work / f"backend_{backend}.png"
+        run(["--procedural", "cornell", "--mode", "path", "--width", 64, "--height", 48,
+             "--frames", 2, "--backend", backend, "--out", png])
+        imgs[backend] = decode_png(png.read_bytes())
+    for backend, img in imgs.items():
+        if not np.array_equal(img, imgs["auto"]):
+            raise AssertionError(f"--backend {backend}'s image differs from auto's")
+    log("[app] --backend auto, bruteforce, bvh, pallas: equal images")
+    out, _ = run(["--procedural", "cornell", "--width", 64, "--height", 48, "--interactive",
+                  "--out", work / "interactive.png"],
+                 stdin="render 2\nset depth 4\nset view_accumulated 1\nclear 0 0 0\n"
+                       "eye 0 1 14\nrender 1\nstats\nsave " + str(work / "saved.png") +
+                       "\nquit\n")
+    for want in ("rendered 2 frame(s)", "depth = 4 (buffers reallocated)",
+                 "view_accumulated = True (buffers kept)", "wrote " + str(work / "saved.png")):
+        if want not in out:
+            raise AssertionError(f"--interactive: {want!r} missing from\n{out}")
+    log(f"[app] --interactive script: ok; app phase {time.perf_counter() - t0:.1f} s")
+
+
+def phase_suite(dev, results):
+    """Phase 7: the port's suite, rows 1, 2 and 7 at 1280x720 and 8 frames,
+    one JSON line each (rows 3-5 are phases 4b-4d, row 8 is 4e)."""
+    from vkrt_tpu_torch.benchmarks import suite
+
+    results["suite"] = suite.main(["--configs", "1,2,7", "--frames", "8", "--width", str(W),
+                                   "--height", str(H), "--device", dev.type])
+
+
 def sync(dev) -> None:
     import torch
 
@@ -1771,14 +2190,19 @@ def main() -> int:
                                                                                city.scene)),
                         ("4d denoised main path",
                          lambda: phase_denoised_main_path(dev, results, city.scene, card)),
+                        ("4e sponzoid main path", lambda: phase_sponzoid(dev, results, card)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
                         ("5b city end to end", lambda: phase_city_end_to_end(dev)),
                         ("5c general loop", lambda: phase_general_loop(dev)),
                         ("5d hybrid end to end", lambda: phase_hybrid_end_to_end(dev)),
                         ("5e denoised end to end", lambda: phase_denoised_end_to_end(dev)),
                         ("5f alpha", lambda: phase_alpha(dev, results, city.scene, card)),
+                        ("5g instances end to end",
+                         lambda: phase_instances_end_to_end(dev, results)),
+                        ("5h app", lambda: phase_app(dev)),
                         ("6 probes", lambda: phase_probes(dev, results, pools["shadow"],
-                                                          city))):
+                                                          city)),
+                        ("7 suite", lambda: phase_suite(dev, results))):
         t0 = time.perf_counter()
         phase()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

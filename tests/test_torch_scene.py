@@ -142,12 +142,13 @@ def test_constructors_default_to_the_card():
 
 def test_port_imports_no_jax():
     """Every module of the port, the probe entry points included, imports
-    with ``jax`` and ``vkrt_tpu`` blocked (``sys.modules[name] = None``
+    with ``jax``, ``vkrt_tpu`` and PIL blocked (``sys.modules[name] = None``
     makes any import of them raise)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['vkrt_tpu'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import vkrt_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(vkrt_tpu_torch.__path__,\n"
         "                                               'vkrt_tpu_torch.')]\n"
@@ -167,5 +168,7 @@ def test_port_imports_no_jax():
                  "benchmarks.ablate_kernel", "benchmarks.variants", "benchmarks.vpupeak",
                  "utils.smath", "utils.obj", "ops.texture", "ops.sampling", "ops.brdf",
                  "models.shading", "ops.nrd", "models.gbuffer", "models.hybrid",
-                 "models.post", "models.denoiser", "ops.alpha", "utils.metrics"):
+                 "models.post", "models.denoiser", "ops.alpha", "utils.metrics",
+                 "scene_instances", "utils.sponzoid", "utils.profiling", "utils.checkpoint",
+                 "benchmarks.suite"):
         assert f"vkrt_tpu_torch.{name}" in names, name

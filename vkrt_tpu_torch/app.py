@@ -7,7 +7,9 @@ Usage:
         --width 1280 --height 720 --frames 16 --out out.png
     python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --gi --denoiser
     python -m vkrt_tpu_torch.app --config config.json --mode path --spp 2 --depth 5
-    python -m vkrt_tpu_torch.app --procedural city --city-grid 96 --mode path --depth 4
+    python -m vkrt_tpu_torch.app --scene path/to.gltf --mode path --depth 3 --stats
+    python -m vkrt_tpu_torch.app --scene path/to.gltf --orbit --frames 8 --out fly.png
+    python -m vkrt_tpu_torch.app --procedural cornell --interactive < commands.txt
 
 Renders on the card (``--device cuda``, the default: it fails when there is
 no card) or, with ``--device cpu``, through the kernels' plain versions.
@@ -16,6 +18,7 @@ no card) or, with ``--device cpu``, through the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -27,6 +30,7 @@ from vkrt_tpu_torch.config import (
     load_config,
     resolve_scene_path,
 )
+from vkrt_tpu_torch.ops.trace import BACKENDS
 from vkrt_tpu_torch.utils.png import write_png
 
 
@@ -34,6 +38,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default=None, help="config.json path")
+    p.add_argument("--scene", default=None, help="override scene file (.gltf/.glb)")
+    p.add_argument("--scene-index", type=int, default=None,
+                   help="index into config scenes[]")
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--mode", choices=["hybrid", "path"], default="hybrid",
@@ -42,6 +49,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--depth", type=int, default=3, help="bounces 1-30")
     p.add_argument("--frames", type=int, default=1,
                    help="progressive frames to accumulate")
+    p.add_argument("--max-frames", type=int, default=None,
+                   help="enable the max-frames limiter at this count")
     p.add_argument("--no-shadows", action="store_true")
     p.add_argument("--no-ao", action="store_true")
     p.add_argument("--gi", action="store_true", help="enable hybrid GI")
@@ -56,9 +65,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "hemisphere draws across each 1024-ray block per "
                         "frame (unbiased)")
     p.add_argument("--clear-color", type=float, nargs=3, default=None)
+    p.add_argument("--backend", choices=list(BACKENDS), default="auto",
+                   help="trace backend: auto (kernel A on the card, brute force "
+                        "on the CPU), bruteforce, bvh (kernel A's walk in plain "
+                        "torch), pallas (kernel A's tracer)")
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--lookat", type=float, nargs=3, default=None)
     p.add_argument("--fov", type=float, default=60.0)
+    p.add_argument("--orbit", action="store_true",
+                   help="fly-through: orbit the camera over the frames and "
+                        "write a PNG per frame (out name gets an _NNNN suffix)")
+    p.add_argument("--orbit-radius", type=float, default=18.0)
+    p.add_argument("--orbit-height", type=float, default=6.0)
     p.add_argument("--procedural", choices=["cornell", "city"], default=None,
                    help="use a procedural scene instead of a file")
     p.add_argument("--city-grid", type=int, default=None, metavar="N",
@@ -66,6 +84,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "benchmark suite's city; default 16)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs the kernels' plain versions")
+    p.add_argument("--save-state", default=None,
+                   help="checkpoint the accumulation state to this .npz on exit")
+    p.add_argument("--load-state", default=None,
+                   help="resume the accumulation state from this .npz")
+    p.add_argument("--stats", action="store_true",
+                   help="print per-run frame stats JSON to stderr")
+    p.add_argument("--trace-dir", default=None,
+                   help="write a torch.profiler Chrome trace here")
+    p.add_argument("--interactive", action="store_true",
+                   help="live parameter loop on stdin, the headless ImGui panel "
+                        "(main.cpp:67-105): render/set/clear/camera/save "
+                        "commands between frames")
     p.add_argument("--out", default="out.png")
     return p
 
@@ -84,13 +114,17 @@ def main(argv=None) -> int:
         cfg = load_config(args.config)
     elif os.path.exists("config.json"):
         cfg = load_config("config.json")
+    if args.scene_index is not None:
+        cfg = dataclasses.replace(cfg, scene=args.scene_index)
     width = args.width or cfg.width
     height = args.height or cfg.height
 
     from vkrt_tpu_torch import scene as scene_mod
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.models.post import to_u8_image
-    from vkrt_tpu_torch.utils.camera import Camera
+    from vkrt_tpu_torch.utils import checkpoint
+    from vkrt_tpu_torch.utils.camera import Camera, orbit_camera
+    from vkrt_tpu_torch.utils.profiling import FrameStats, device_trace, timed_frame
 
     t0 = time.time()
     if args.procedural == "cornell":
@@ -98,6 +132,8 @@ def main(argv=None) -> int:
     elif args.procedural == "city":
         scene = (scene_mod.make_city(grid=args.city_grid, device=device)
                  if args.city_grid else scene_mod.make_city(device=device))
+    elif args.scene:
+        scene = scene_mod.load_scene(args.scene, device=device)
     else:
         path = resolve_scene_path(cfg)
         if os.path.exists(path):
@@ -116,7 +152,10 @@ def main(argv=None) -> int:
         use_gi=args.gi,
         rt_mode=1 if args.mode == "path" else 0,
         view_accumulated=args.view_accumulated,
+        max_frames=args.max_frames or 1,
+        stop_at_max_frames=args.max_frames is not None,
         use_denoiser=args.denoiser,
+        backend=args.backend,
         alpha_test=args.alpha_test,
         corr_sampler=args.corr_sampler,
     )
@@ -127,20 +166,133 @@ def main(argv=None) -> int:
     )
     clear = tuple(args.clear_color) + (1.0,) if args.clear_color else DEFAULT_CLEAR_COLOR
     engine = Engine(scene, width, height, settings, cam, clear)
+    if args.load_state:
+        ok = checkpoint.restore(engine, args.load_state)
+        print(f"resume from {args.load_state}: "
+              f"{'ok, frame ' + str(engine.frame) if ok else 'rejected'}")
+    if args.interactive:
+        return run_interactive(engine, args, width, height)
 
+    stats = FrameStats()
     t0 = time.time()
     out = None
-    for _ in range(args.frames):
-        out = engine.render_frame()
+    with device_trace(args.trace_dir):
+        for f in range(args.frames):
+            if args.orbit:
+                engine.camera = orbit_camera(
+                    f / args.frames, center=tuple(args.lookat) if args.lookat else (0, 0, 0),
+                    radius=args.orbit_radius, height=args.orbit_height, fov_deg=args.fov)
+            with timed_frame(stats, device=device):
+                out = engine.render_frame()
+            if args.orbit:
+                base, ext = os.path.splitext(args.out)
+                write_png(f"{base}_{f:04d}{ext}", to_u8_image(out, width, height))
     img = to_u8_image(out, width, height)  # copies to the host: syncs
     dt = time.time() - t0
     total_rays = engine.total_rays
+    stats.rays = [total_rays / len(stats.times_s)] * len(stats.times_s)
     mrays = total_rays / dt / 1e6 if dt > 0 else 0.0
     print(f"{args.frames} frames at {width}x{height} on {device} in {dt:.3f}s "
           f"({dt / args.frames * 1000:.1f} ms/frame, {mrays:.1f} Mrays/s "
-          f"incl. set-up)")
+          f"incl. set-up; frame counter {engine.frame})")
+    if args.stats:
+        stats.log()
+    if args.save_state:
+        checkpoint.save(engine, args.save_state)
+        print(f"saved state to {args.save_state}")
+    if args.trace_dir:
+        print(f"wrote a trace into {args.trace_dir}")
     write_png(args.out, img)
     print(f"wrote {args.out}")
+    return 0
+
+
+def run_interactive(engine, args, width, height) -> int:
+    """Live parameter loop: the headless equivalent of the reference's
+    ImGui panel (main.cpp:67-105), changing render settings between frames
+    from stdin. Any change resets accumulation, as in the reference
+    (main.cpp:103-104); a change of spp, depth, mode, a toggle, the backend
+    or the sampler also reallocates the engine's buffers, and ``set`` says
+    whether it did.
+
+    Commands (one per line; '#' comments and blank lines ignored):
+      render [N]           render N progressive frames (default 1)
+      set KEY VALUE        any RenderSettings field, e.g. set depth 5,
+                           set use_gi 1, set clamp_weights 1, set samples 2
+      clear R G B          clear color
+      eye X Y Z | lookat X Y Z | fov DEG      camera (resets accumulation)
+      save [PATH]          write the current composite PNG (default --out)
+      stats                frame counter + last render timing
+      quit                 exit (writes --out first)
+    """
+    from vkrt_tpu_torch.models.post import to_u8_image
+    from vkrt_tpu_torch.utils.profiling import synchronize
+
+    out = None
+    last_ms = None
+
+    def render_n(k: int):
+        nonlocal out, last_ms
+        t0 = time.time()
+        for _ in range(k):
+            out = engine.render_frame()
+        synchronize(engine.device)
+        last_ms = (time.time() - t0) / max(k, 1) * 1e3
+        print(f"rendered {k} frame(s), {last_ms:.1f} ms/frame "
+              f"(frame counter {engine.frame})")
+
+    fields = {f.name for f in dataclasses.fields(engine.settings)}
+    print("interactive: 'render N', 'set KEY VALUE', 'clear R G B', "
+          "'eye/lookat X Y Z', 'fov D', 'save [PATH]', 'stats', 'quit'", flush=True)
+    for line in sys.stdin:
+        toks = line.split("#", 1)[0].split()
+        if not toks:
+            continue
+        cmd, rest = toks[0].lower(), toks[1:]
+        try:
+            if cmd == "quit":
+                break
+            elif cmd == "render":
+                render_n(int(rest[0]) if rest else 1)
+            elif cmd == "set":
+                key, val = rest[0], rest[1]
+                if key not in fields:
+                    print(f"unknown setting {key!r}; one of {sorted(fields)}")
+                    continue
+                cur = getattr(engine.settings, key)
+                new = (val not in ("0", "false", "False") if isinstance(cur, bool)
+                       else type(cur)(val))
+                realloc = engine.update_settings(engine.settings.replace(**{key: new}))
+                print(f"{key} = {new} "
+                      f"({'buffers reallocated' if realloc else 'buffers kept'})")
+            elif cmd == "clear":
+                engine.clear_color = tuple(float(x) for x in rest[:3]) + (1.0,)
+                engine.reset_frame()  # radiance changes: restart accumulation
+                print("clear color set")
+            elif cmd in ("eye", "lookat"):
+                kw = {"eye" if cmd == "eye" else "center": tuple(float(x) for x in rest[:3])}
+                engine.camera = dataclasses.replace(engine.camera, **kw)
+                print(f"{cmd} set (accumulation resets on next frame)")
+            elif cmd == "fov":
+                engine.camera = dataclasses.replace(engine.camera, fov_deg=float(rest[0]))
+                print("fov set")
+            elif cmd == "save":
+                path = rest[0] if rest else args.out
+                if out is None:
+                    render_n(1)
+                write_png(path, to_u8_image(out, width, height))
+                print(f"wrote {path}")
+            elif cmd == "stats":
+                print(f"frame {engine.frame}, last {last_ms and f'{last_ms:.1f}'} "
+                      f"ms/frame, total rays {engine.total_rays:.3g}")
+            else:
+                print(f"unknown command {cmd!r}")
+        except (ValueError, IndexError) as e:
+            print(f"bad command {line.strip()!r}: {e}")
+        sys.stdout.flush()
+    if out is not None:
+        write_png(args.out, to_u8_image(out, width, height))
+        print(f"wrote {args.out}")
     return 0
 
 

@@ -20,7 +20,14 @@ G-buffer, the denoiser's history and the frame counter, and exposes
   buffers and the denoiser's history;
 * max-frames early-out: when limiting is on and frame >= maxFrames the
   frame is not re-rendered (hello_vulkan.cpp:1426-1430); hybrid mode
-  renders once first when it has no G-buffer to show.
+  renders once first when it has no G-buffer to show;
+* ``set_node_transform`` (an engine built from an ``InstancedScene``)
+  re-poses one node, refits the tracer and resets the frame; the
+  denoiser's history stays, as a camera move keeps it.
+
+A frame runs under a ``pass_label`` ("pathtrace" or "hybrid"), a named
+range in torch.profiler traces; inside ``utils.profiling.nan_debug`` a
+non-finite composite raises.
 
 Pixels run in 32x32-tile order (``utils.camera.tile_perm``) with seeds of
 the original pixel id, ``tea(pid, frame)``, so a pixel's radiance does not
@@ -42,6 +49,7 @@ from vkrt_tpu_torch.models.pathtracer import pathtrace_frame
 from vkrt_tpu_torch.ops.rng import tea
 from vkrt_tpu_torch.ops.trace import make_tracer
 from vkrt_tpu_torch.scene import SceneTensors
+from vkrt_tpu_torch.utils import profiling
 from vkrt_tpu_torch.utils.camera import Camera, pixel_coords, tile_perm, untile
 
 # a change of any of these reallocates the buffers (the JAX engine's
@@ -54,13 +62,19 @@ _BUFFER_FIELDS = ("samples", "depth", "rt_mode", "use_shadows", "use_ao", "use_g
 class Engine:
     def __init__(
         self,
-        scene: SceneTensors,
+        scene,
         width: int,
         height: int,
         settings: RenderSettings = RenderSettings(),
         camera: Camera = Camera(),
         clear_color=DEFAULT_CLEAR_COLOR,
     ):
+        """``scene``: a ``SceneTensors``, or an ``InstancedScene``
+        (``scene_instances``), whose nodes ``set_node_transform`` moves."""
+        self.instances = None
+        if not isinstance(scene, SceneTensors):  # an InstancedScene
+            self.instances = scene
+            scene = scene.scene
         self.scene = scene
         self.device = scene.device
         self.width = width
@@ -68,7 +82,7 @@ class Engine:
         self.settings = settings
         self.camera = camera
         self.clear_color = tuple(float(c) for c in clear_color)
-        self.tracer = make_tracer(scene, settings.backend, alpha=settings.alpha_test)
+        self.tracer = self._make_tracer()
         self.frame = -1
         self._ref_cam: Optional[Camera] = None
         self._total_rays = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -79,6 +93,16 @@ class Engine:
         """Total rays traced. Reading syncs with the device: fetch once per
         run, not per frame."""
         return float(self._total_rays)
+
+    @total_rays.setter
+    def total_rays(self, value: float):
+        self._total_rays = torch.tensor(float(value), dtype=torch.float32,
+                                        device=self.device)
+
+    def _make_tracer(self):
+        s = self.settings
+        tri = self.instances.tri_arrays() if self.instances is not None else None
+        return make_tracer(self.scene, s.backend, alpha=s.alpha_test, tri_arrays=tri)
 
     def _alloc_buffers(self):
         n = self.width * self.height
@@ -112,16 +136,36 @@ class Engine:
         self.frame += 1
 
     def update_settings(self, settings: RenderSettings):
+        """Apply new settings: any change resets the frame; a change of a
+        ``_BUFFER_FIELDS`` field reallocates the buffers (returns True then),
+        of the backend or ``alpha_test`` rebuilds the tracer."""
         if settings == self.settings:
-            return
-        if (settings.backend, settings.alpha_test) != (self.settings.backend,
-                                                       self.settings.alpha_test):
-            self.tracer = make_tracer(self.scene, settings.backend, alpha=settings.alpha_test)
-        realloc = any(getattr(settings, f) != getattr(self.settings, f) for f in _BUFFER_FIELDS)
-        self.settings = settings
+            return False
+        old, self.settings = self.settings, settings
+        if (settings.backend, settings.alpha_test) != (old.backend, old.alpha_test):
+            self.tracer = self._make_tracer()
+        realloc = any(getattr(settings, f) != getattr(old, f) for f in _BUFFER_FIELDS)
         if realloc:
             self._alloc_buffers()
         self.reset_frame()  # any UI change calls resetFrame (main.cpp:103)
+        return realloc
+
+    def set_node_transform(self, prim_idx: int, world_matrix):
+        """Re-pose one scene node (the reference's instance-transform
+        update, createTopLevelAsGltf hello_vulkan.cpp:1031-1047): re-bake
+        the primitive into the scene tensors and refit the tracer (the cost
+        scales with the moved subset; no SAH build). Resets the frame; the
+        denoiser's history stays. Needs an engine built from an
+        ``InstancedScene``."""
+        if self.instances is None:
+            raise ValueError("engine was not built from an InstancedScene; load via "
+                             "scene_instances.load_scene_instanced to enable re-posing")
+        from vkrt_tpu_torch import scene_instances as si
+
+        self.instances, moved = si.repose(self.instances, prim_idx, world_matrix)
+        self.scene = self.instances.scene
+        self.tracer = si.repose_tracer(self.tracer, self.instances, moved)
+        self.reset_frame()  # geometry changed: restart accumulation
 
     def resize(self, width: int, height: int):
         """onResize (hello_vulkan.cpp:620-626)."""
@@ -143,16 +187,19 @@ class Engine:
             kw = dict(width=self.width, height=self.height, depth=s.depth,
                       clamp_weights=bool(s.clamp_weights), corr=s.corr_sampler,
                       pix=self._pix, seeds=seeds)
-            if s.rt_mode == 1:
-                self.accum, rays = pathtrace_frame(
-                    self.scene, self.tracer, cam, self.frame, self.accum, self.clear_color,
-                    samples=s.samples, **kw)
-            else:
-                self.gbuffer, self.accum_rt, rays, self.denoise_state = hybrid_frame(
-                    self.scene, self.tracer, cam, self.frame, self.accum_rt,
-                    self.clear_color, use_shadows=s.use_shadows, use_ao=s.use_ao,
-                    use_gi=s.use_gi, use_denoiser=s.use_denoiser, perm=self._perm,
-                    inv_perm=self._inv_perm, denoise_state=self.denoise_state, **kw)
+            # named range in device traces: the reference's beginLabel /
+            # endLabel (hello_vulkan.cpp:587, 1432-1447, 1459)
+            with profiling.pass_label("pathtrace" if s.rt_mode == 1 else "hybrid"):
+                if s.rt_mode == 1:
+                    self.accum, rays = pathtrace_frame(
+                        self.scene, self.tracer, cam, self.frame, self.accum,
+                        self.clear_color, samples=s.samples, **kw)
+                else:
+                    self.gbuffer, self.accum_rt, rays, self.denoise_state = hybrid_frame(
+                        self.scene, self.tracer, cam, self.frame, self.accum_rt,
+                        self.clear_color, use_shadows=s.use_shadows, use_ao=s.use_ao,
+                        use_gi=s.use_gi, use_denoiser=s.use_denoiser, perm=self._perm,
+                        inv_perm=self._inv_perm, denoise_state=self.denoise_state, **kw)
             self._total_rays = self._total_rays + rays
         if s.rt_mode == 1:
             out = post_mod.composite(self.accum, None, rt_mode=1,
@@ -160,7 +207,10 @@ class Engine:
         else:
             out = post_mod.composite(self.gbuffer.color[:, :3], self.accum_rt, rt_mode=0,
                                      view_accumulated=s.view_accumulated, use_gi=s.use_gi)
-        return self._untile(out)
+        out = self._untile(out)
+        if profiling.nan_debug_enabled():
+            profiling.check_finite(out, f"frame {self.frame}")  # one device read
+        return out
 
     def render(self, frames: int = 1) -> np.ndarray:
         """Render ``frames`` progressive frames, return (H,W,3) uint8."""

@@ -15,11 +15,17 @@ because Mosaic has no per-lane gathers and are not ported.
 ``trace_kernel`` is the wrapper: on CUDA tensors it launches the kernel
 (or raises); on CPU tensors it runs the kernel's plain version, the brute
 force of ``ops/trace.py``.
+
+Scenes that move (``scene_instances``) keep the tree and refit its boxes
+(``refit_bvh``, the counterpart of the TPU package's cluster refit): the
+math runs on the tree's host mirror (``BvhHost``, kept by ``build_bvh``)
+and only the dirty rows of the three tables are written on the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,7 +33,7 @@ import torch
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.ops.intersect import T_MIN
 from vkrt_tpu_torch.ops.trace import (
-    WALK_STACK, Bvh, RayHits, Tracer, trace_rays_bruteforce,
+    WALK_STACK, Bvh, RayHits, Tracer, trace_rays_bruteforce, trace_rays_bvh_ordered,
 )
 from vkrt_tpu_torch.scene import SceneTensors
 from vkrt_tpu_torch.utils import native
@@ -58,6 +64,26 @@ def node_depths(skip: np.ndarray, tri: np.ndarray) -> np.ndarray:
     return depth
 
 
+def node_refs(tri: np.ndarray) -> np.ndarray:
+    """Every node's reference in ``pack_bvh2_nodes``' records: an inner
+    node's row among the inner nodes, a leaf's ``~slot`` (its place in
+    ``leaf_tri``)."""
+    is_leaf = tri >= 0
+    return np.where(is_leaf, ~(np.cumsum(is_leaf) - 1), np.cumsum(~is_leaf) - 1).astype(np.int32)
+
+
+def _records(lo, hi, ref, left, right, rec_depth) -> np.ndarray:
+    """Child-box records (``pack_bvh2_nodes``' layout) of the inner nodes
+    whose children are ``left`` and ``right``."""
+    rec = np.zeros((len(left), 16), np.float32)
+    rec[:, 0:3], rec[:, 4:7] = lo[left], hi[left]
+    rec[:, 8:11], rec[:, 12:15] = lo[right], hi[right]
+    rec[:, 3] = ref[left].view(np.float32)
+    rec[:, 7] = ref[right].view(np.float32)
+    rec[:, 11] = np.asarray(rec_depth, np.int32).view(np.float32)
+    return rec
+
+
 def pack_bvh2_nodes(node_min, node_max, node_skip, node_tri):
     """The threaded tree -> (records, leaf_tri, depth).
 
@@ -65,7 +91,8 @@ def pack_bvh2_nodes(node_min, node_max, node_skip, node_tri):
     float4: [left min.xyz | left ref], [left max.xyz | right ref],
     [right min.xyz | the node's depth], [right max.xyz | 0], integers as
     i32 bits. A reference >= 0 is a row of ``records``; a leaf is ``~slot``
-    with ``slot`` its place in ``leaf_tri``. There are no leaf rows.
+    with ``slot`` its place in ``leaf_tri`` (``node_refs``). There are no
+    leaf rows.
     ``leaf_tri``: (L,) int32 scene triangle ids in leaf (preorder) order.
     ``depth``: the most inner nodes on a path from the root, which is the
     most stack entries a front-to-back walk holds.
@@ -77,11 +104,8 @@ def pack_bvh2_nodes(node_min, node_max, node_skip, node_tri):
     skip = np.asarray(node_skip, np.int64)
     tri = np.asarray(node_tri, np.int32)
     lo, hi = np.asarray(node_min, np.float32), np.asarray(node_max, np.float32)
-    is_leaf = tri >= 0
-    leaf_tri = tri[is_leaf]
-    # a node's reference: its row among the inner nodes, or ~its leaf slot
-    ref = np.where(is_leaf, ~(np.cumsum(is_leaf) - 1), np.cumsum(~is_leaf) - 1).astype(np.int32)
-    inner = np.nonzero(~is_leaf)[0]
+    leaf_tri = tri[tri >= 0]
+    inner = np.nonzero(tri < 0)[0]
     depth = node_depths(skip, tri)
     if inner.size == 0:  # the root is a leaf
         left = right = np.zeros(1, np.int64)
@@ -89,12 +113,7 @@ def pack_bvh2_nodes(node_min, node_max, node_skip, node_tri):
     else:
         left, right = inner + 1, skip[inner + 1]
         rec_depth = depth[inner]
-    rec = np.zeros((len(left), 16), np.float32)
-    rec[:, 0:3], rec[:, 4:7] = lo[left], hi[left]
-    rec[:, 8:11], rec[:, 12:15] = lo[right], hi[right]
-    rec[:, 3] = ref[left].view(np.float32)
-    rec[:, 7] = ref[right].view(np.float32)
-    rec[:, 11] = rec_depth.view(np.float32)
+    rec = _records(lo, hi, node_refs(tri), left, right, rec_depth)
     return rec, leaf_tri, int(rec_depth.max()) + 1
 
 
@@ -188,27 +207,159 @@ def _tri_arrays(scene: SceneTensors):
             for t in (scene.tri_v0, scene.tri_e1, scene.tri_e2)]
 
 
-def build_bvh_arrays(scene: SceneTensors):
+def build_bvh_arrays(scene: SceneTensors, tri_arrays=None):
     """(node_min, node_max, node_skip, node_tri) from the native SAH
     builder (compiled at first use; a failed build raises: there is no
-    Morton fallback)."""
-    res = native.build_sah_bvh(*_tri_arrays(scene))
+    Morton fallback). ``tri_arrays``: the scene's (v0, e1, e2) on the host,
+    when the caller has them (else they are read from the device)."""
+    res = native.build_sah_bvh(*(tri_arrays or _tri_arrays(scene)))
     if res is None:
         raise ValueError("scene has no non-degenerate triangle to build a BVH over")
     return res
 
 
-def build_bvh(scene: SceneTensors) -> Bvh:
+class BvhHost(NamedTuple):
+    """The host mirror of a ``Bvh``'s tree, kept when it is built, so that
+    ``refit_bvh`` never reads the device tables back. M nodes of the
+    threaded preorder tree, T scene triangles."""
+
+    skip: np.ndarray         # (M,) int64 skip links
+    tri: np.ndarray          # (M,) int32 a leaf's triangle, -1 at inner nodes
+    ref: np.ndarray          # (M,) int32 record row (inner) or ~leaf slot (node_refs)
+    depth: np.ndarray        # (M,) int32 (node_depths)
+    parent: np.ndarray       # (M,) int64, -1 at the root
+    lo: np.ndarray           # (M,3) f32 node boxes
+    hi: np.ndarray           # (M,3) f32
+    node_of_tri: np.ndarray  # (T,) int64 the leaf of a triangle, -1 if not in the tree
+
+
+def bvh_host(node_min, node_max, node_skip, node_tri, n_tris: int) -> BvhHost:
+    """The host mirror of the threaded tree ``native.build_sah_bvh``
+    returned, over a scene of ``n_tris`` triangles."""
+    skip = np.asarray(node_skip, np.int64)
+    tri = np.asarray(node_tri, np.int32)
+    inner = np.nonzero(tri < 0)[0]
+    parent = np.full(len(tri), -1, np.int64)
+    parent[inner + 1] = inner
+    parent[skip[inner + 1]] = inner
+    node_of_tri = np.full(n_tris, -1, np.int64)
+    leaves = np.nonzero(tri >= 0)[0]
+    node_of_tri[tri[leaves]] = leaves
+    return BvhHost(skip=skip, tri=tri, ref=node_refs(tri), depth=node_depths(skip, tri),
+                   parent=parent, lo=np.array(node_min, np.float32),
+                   hi=np.array(node_max, np.float32), node_of_tri=node_of_tri)
+
+
+def build_bvh(scene: SceneTensors, tri_arrays=None) -> Bvh:
     """The scene's BVH tables on the scene's device: what kernel A walks,
-    and the threaded table beside it."""
-    arrays = build_bvh_arrays(scene)
+    the threaded table beside it, and the tree's host mirror.
+    ``tri_arrays``: as ``build_bvh_arrays``."""
+    tri_arrays = tri_arrays or _tri_arrays(scene)
+    arrays = build_bvh_arrays(scene, tri_arrays)
     records, leaf_tri, depth = pack_bvh2_nodes(*arrays)
 
     def put(a):
         return torch.as_tensor(a, device=scene.device)
 
-    return Bvh(nodes=put(records), tris=put(pack_tris(*_tri_arrays(scene), leaf_tri)),
-               depth=depth, threaded=put(pack_bvh_nodes(*arrays)))
+    return Bvh(nodes=put(records), tris=put(pack_tris(*tri_arrays, leaf_tri)),
+               depth=depth, threaded=put(pack_bvh_nodes(*arrays)),
+               host=bvh_host(*arrays, n_tris=len(tri_arrays[0])))
+
+
+def _leaf_boxes(v0, e1, e2):
+    """Triangle boxes as the native builder forms them
+    (``native/bvh_builder.cpp::make_builder``): the corners v0, v0 + e1 and
+    v0 + e2 in f32, folded into the box in that order, a corner replacing
+    the bound only where it is strictly beyond it."""
+    p1, p2 = v0 + e1, v0 + e2
+    lo, hi = v0.copy(), v0.copy()
+    for p in (p1, p2):
+        lo = np.where(p < lo, p, lo)
+        hi = np.where(hi < p, p, hi)
+    return lo, hi
+
+
+def _splice(table: torch.Tensor, rows: np.ndarray, values: np.ndarray) -> torch.Tensor:
+    """``table`` with ``rows`` replaced: a copy on the device, then an
+    ``index_copy_`` of the new rows (copy on write: tables of the earlier
+    pose stay as they were)."""
+    idx = torch.as_tensor(rows, dtype=torch.long, device=table.device)
+    vals = torch.as_tensor(values, device=table.device)
+    return table.clone().index_copy_(0, idx, vals)
+
+
+def refit_bvh(bvh: Bvh, v0, e1, e2, moved) -> Bvh:
+    """Refit ``bvh`` to moved triangles: the port's counterpart of
+    ``vkrt_tpu/ops/pallas/trace.py::refit_cluster_scene``. The topology
+    stays; the boxes grow or shrink.
+
+    ``v0``, ``e1``, ``e2``: the scene's (T,3) f32 triangles after the move,
+    on the host; ``moved``: (T,) bool. The leaf boxes of the moved
+    triangles are formed as the native builder forms them
+    (``_leaf_boxes``); then the dirty ancestors are refit level by level,
+    deepest first, from their two children (the lower bound of the right
+    child replaces the left's only where it is strictly smaller, so a
+    refit of unmoved geometry gives the build's tables bit for bit). Only
+    the dirty rows of the three tables are rewritten: the child-box records
+    of the dirty inner nodes, the triangle records of the moved triangles
+    and the threaded rows of every dirty node. All of it runs on the tree's
+    host mirror (``bvh.host``); the device receives the rows. ``depth``
+    does not change.
+
+    The builder leaves degenerate triangles (all edges zero: padding) out
+    of the tree, and so does a refit; a moved triangle outside the tree
+    that is no longer degenerate cannot be refit and raises.
+    ``refit_bvh.rows`` counts the rows written, by table."""
+    h = bvh.host
+    if h is None:
+        raise ValueError("refit_bvh needs the tree's host mirror (build_bvh keeps it)")
+    ids = np.nonzero(np.asarray(moved, bool))[0]
+    leaf = h.node_of_tri[ids]
+    outside = leaf < 0
+    if outside.any():
+        t = ids[outside]
+        if (np.abs(e1[t]) + np.abs(e2[t])).any():
+            raise ValueError(f"{int(outside.sum())} moved triangles are not in the tree "
+                             "(degenerate when it was built) and no longer degenerate: "
+                             "rebuild the BVH")
+        ids, leaf = ids[~outside], leaf[~outside]
+    if ids.size == 0:
+        return bvh
+    lo, hi = h.lo.copy(), h.hi.copy()
+    lo[leaf], hi[leaf] = _leaf_boxes(v0[ids], e1[ids], e2[ids])
+    levels, frontier = [], leaf
+    while True:  # the dirty ancestors
+        frontier = np.unique(h.parent[frontier])
+        frontier = frontier[frontier >= 0]
+        if not frontier.size:
+            break
+        levels.append(frontier)
+    inner = np.unique(np.concatenate(levels)) if levels else np.zeros(0, np.int64)
+    for d in np.unique(h.depth[inner])[::-1]:
+        k = inner[h.depth[inner] == d]
+        left, right = k + 1, h.skip[k + 1]
+        lo[k] = np.where(lo[right] < lo[left], lo[right], lo[left])
+        hi[k] = np.where(hi[left] < hi[right], hi[right], hi[left])
+    if inner.size:
+        rec_rows = h.ref[inner]
+        records = _records(lo, hi, h.ref, inner + 1, h.skip[inner + 1], h.depth[inner])
+    else:  # the root is a leaf: its one record holds it twice
+        rec_rows = np.zeros(1, np.int64)
+        records = _records(lo, hi, h.ref, rec_rows, rec_rows, rec_rows)
+    dirty = np.concatenate([leaf, inner])
+    threaded = pack_bvh_nodes(lo[dirty], hi[dirty], h.skip[dirty], h.tri[dirty])
+    slots = ~h.ref[leaf]
+    for name, n in (("records", len(rec_rows)), ("tris", len(slots)),
+                    ("threaded", len(dirty))):
+        refit_bvh.rows[name] += n
+    return bvh._replace(
+        nodes=_splice(bvh.nodes, rec_rows, records),
+        tris=_splice(bvh.tris, slots, pack_tris(v0, e1, e2, ids)),
+        threaded=_splice(bvh.threaded, dirty, threaded),
+        host=h._replace(lo=lo, hi=hi))
+
+
+refit_bvh.rows = {"records": 0, "tris": 0, "threaded": 0}
 
 
 def _check_f32(name, t, shape):
@@ -281,7 +432,8 @@ trace_kernel.launches = 0
 
 @dataclasses.dataclass(frozen=True)
 class CudaTracer(Tracer):
-    """Tracer running kernel A over the scene's BVH."""
+    """Tracer running kernel A over the scene's BVH (on a CPU tensor, its
+    plain version)."""
 
     bvh: Bvh = None  # build_bvh's tables
 
@@ -289,6 +441,27 @@ class CudaTracer(Tracer):
               any_hit: bool = False) -> RayHits:
         return trace_kernel(self.bvh, self.scene, o, d, t_lim, t_min, any_hit)
 
+    def refit(self, scene: SceneTensors, tri_arrays, moved) -> "CudaTracer":
+        """This tracer on ``scene``, whose triangles ``moved`` (``refit_bvh``
+        on the host arrays ``tri_arrays`` = (v0, e1, e2))."""
+        return dataclasses.replace(self, scene=scene,
+                                   bvh=refit_bvh(self.bvh, *tri_arrays, moved))
 
-def make_cuda_tracer(scene: SceneTensors) -> CudaTracer:
-    return CudaTracer(scene=scene, bvh=build_bvh(scene))
+
+@dataclasses.dataclass(frozen=True)
+class BvhTracer(CudaTracer):
+    """The ``bvh`` backend: kernel A's walk in plain torch
+    (``trace_rays_bvh_ordered``) over ``build_bvh``'s tables, on either
+    device; refit as kernel A's tracer is."""
+
+    def trace(self, o, d, t_lim, t_min: float = T_MIN,
+              any_hit: bool = False) -> RayHits:
+        return trace_rays_bvh_ordered(self.bvh, o, d, t_lim, t_min, any_hit)
+
+
+def make_cuda_tracer(scene: SceneTensors, tri_arrays=None) -> CudaTracer:
+    return CudaTracer(scene=scene, bvh=build_bvh(scene, tri_arrays))
+
+
+def make_bvh_tracer(scene: SceneTensors, tri_arrays=None) -> BvhTracer:
+    return BvhTracer(scene=scene, bvh=build_bvh(scene, tri_arrays))

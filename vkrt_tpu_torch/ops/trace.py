@@ -152,6 +152,8 @@ class Bvh(NamedTuple):
     tris: torch.Tensor      # (L, 12) f32 triangle records in leaf order
     depth: int              # the most stack entries a walk of it holds
     threaded: torch.Tensor  # (M, 8) f32 threaded table (pack_bvh_nodes)
+    host: object = None     # the tree's host mirror (ops/cuda/trace.py::BvhHost),
+    #                         which refit_bvh reads instead of the device tables
 
 
 class BvhCounts(NamedTuple):
@@ -525,19 +527,35 @@ class Tracer:
         return self.trace(orig, direction, lim, t_min, any_hit=True).tri >= 0
 
 
-def make_tracer(scene: SceneTensors, backend: str = "auto", alpha: bool = False):
-    """The CUDA tracer for a scene on a CUDA device, brute force on the
-    CPU. ``alpha``: wrap it in the alpha tracer (``ops/alpha.py``) when the
-    scene has a MASK or BLEND material (opt-in, as in the JAX package: the
-    reference ships its any-hit shaders unwired)."""
-    if backend != "auto":
-        raise ValueError(f"unknown trace backend {backend!r} (only 'auto')")
-    if scene.device.type == "cuda":
-        from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer
+BACKENDS = ("auto", "bruteforce", "bvh", "pallas")
 
-        inner = make_cuda_tracer(scene)
-    elif scene.device.type == "cpu":
+
+def make_tracer(scene: SceneTensors, backend: str = "auto", alpha: bool = False,
+                tri_arrays=None):
+    """The tracer of ``backend`` (the JAX package's names) for a scene:
+
+    * ``auto``: kernel A's tracer on a CUDA device, brute force on the CPU;
+    * ``bruteforce``: ``Tracer`` (``trace_rays_bruteforce``) on either device;
+    * ``bvh``: kernel A's walk in plain torch (``trace_rays_bvh_ordered``)
+      over ``build_bvh``'s tables on either device (the JAX package walks an
+      LBVH here; both give exact closest hits);
+    * ``pallas``: kernel A's tracer (``CudaTracer``); on a CPU scene its
+      wrapper runs the plain version, as every wrapper does.
+
+    ``alpha``: wrap it in the alpha tracer (``ops/alpha.py``) when the
+    scene has a MASK or BLEND material (opt-in, as in the JAX package: the
+    reference ships its any-hit shaders unwired). ``tri_arrays``: the
+    scene's (v0, e1, e2) on the host for a BVH build, when the caller has
+    them (an ``InstancedScene``'s mirrors)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown trace backend {backend!r} (one of {BACKENDS})")
+    if scene.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no tracer for device {scene.device}")
+    if backend == "bruteforce" or (backend == "auto" and scene.device.type == "cpu"):
         inner = Tracer(scene)
     else:
-        raise ValueError(f"no tracer for device {scene.device}")
+        from vkrt_tpu_torch.ops.cuda.trace import make_bvh_tracer, make_cuda_tracer
+
+        make = make_bvh_tracer if backend == "bvh" else make_cuda_tracer
+        inner = make(scene, tri_arrays)
     return make_alpha_tracer(scene, inner) if alpha else inner

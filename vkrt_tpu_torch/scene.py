@@ -227,7 +227,20 @@ def build_scene(doc: gltf_mod.GltfDocument, pad_to: int = TRI_PAD,
     """Flatten a parsed glTF document into SceneTensors (bake world xforms).
     ``tri_mat``: optional per-triangle material ids overriding the
     primitives' (procedural soups)."""
-    device = _device(device)
+    device = _device(device)  # before the host build: no card, no build
+    return scene_from_arrays(scene_arrays(doc, pad_to, tri_mat), device)
+
+
+def scene_from_arrays(arrays: dict, device) -> SceneTensors:
+    """``scene_arrays``' host arrays -> SceneTensors on ``device``, the mip
+    atlas in its storage dtype."""
+    scene = scene_from_numpy(arrays, device)
+    return scene._replace(tex_mip_atlas=scene.tex_mip_atlas.to(_tex_store_dtype()))
+
+
+def scene_arrays(doc: gltf_mod.GltfDocument, pad_to: int = TRI_PAD, tri_mat=None) -> dict:
+    """``build_scene``'s host side: {SceneTensors field: numpy array}, the
+    arrays the device tensors are made from (the mip atlas in f32)."""
     all_v0, all_v1, all_v2 = [], [], []
     all_n, all_tg, all_uv, all_mat = [], [], [], []
     for prim in doc.primitives:
@@ -324,10 +337,7 @@ def build_scene(doc: gltf_mod.GltfDocument, pad_to: int = TRI_PAD,
         "tex_n_levels": (n_levels, i32),
         "tri_uv_density": (density, f32),
     }
-    scene = scene_from_numpy(
-        {k: np.asarray(a, dt) for k, (a, dt) in arrays.items()}, device
-    )
-    return scene._replace(tex_mip_atlas=scene.tex_mip_atlas.to(_tex_store_dtype()))
+    return {k: np.asarray(a, dt) for k, (a, dt) in arrays.items()}
 
 
 def load_scene(path: str, device=None) -> SceneTensors:
