@@ -149,6 +149,29 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    kernel A's first design) on the same rays, the visits a ray and the SIMT
    efficiency of both walks, and both bounds.
 
+4f. suite row 6 (``cornell_sharded_mesh``) through the port's mesh of ranks
+   (``vkrt_tpu_torch/parallel``): the glTF Cornell box at 1280x720, spp 1,
+   depth 3, correlated sampler on, over ``factor_mesh(cards)`` (one card:
+   mesh (1,1) over NCCL, in this process) -- one warm-up frame, then 3
+   batches of 8 frames, each from a fresh accumulator, timed on the host
+   clock between device synchronisations; each rank's counters grow by 6
+   trace and 3 shade launches a frame; on mesh (1,1) the last batch's
+   image equals ``Engine``'s 8 frames bit for bit; then the engine's and
+   the mesh's batches of the same frames in turns (engine, mesh, mesh,
+   engine), each the best of 3 batches on the host clock;
+5i. suite row 5's stack under a (4,1) mesh: 4 ranks (spawned processes)
+   sharing the card over gloo, each building ``make_city(grid=96)``, 3
+   frames of the row-5 fly-through at 1280x720 with the temporal denoiser
+   in its band form (ring halos, gathered history), correlated sampler
+   off; every frame's gathered composite against the single-process
+   ``Engine`` on the same poses by the display gate (max abs difference
+   printed), rays within 0.1%, each rank 6 trace and 2 albedo shade
+   launches a frame;
+5j. ``python -m vkrt_tpu_torch.app --mesh 2,2 --spp 2`` on the Cornell box
+   at 1280x720, 2 frames (4 ranks sharing the card, gloo): finite,
+   non-black, and its displayed mean within 0.02 of the unsharded app's
+   spp-2 image; then ``dryrun_multichip(4)`` on gloo CPU ranks;
+
 7. the port's suite (``vkrt_tpu_torch.benchmarks.suite``), rows 1, 2 and 7
    at 1280x720 and 8 frames, one JSON line each (rows 3-5 are phases
    4b-4d, row 8 is 4e).
@@ -161,8 +184,10 @@ computes the same function and its launches on its path; ``trace`` and
 denoised fly-through's in ``denoised_launches``, as does ``shade_albedo``;
 ``trace``'s ``alpha_launches`` counts phase 5f's full-size alpha run, its
 ``sponzoid_launches`` and ``sponzoid_animated_launches`` phase 4e's static
-and animated runs, and ``cubes_launches`` / ``cubes_hybrid_launches`` of
-``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card), the
+and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
+``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card, and
+``mesh_launches`` / ``mesh_hybrid_launches`` of ``trace``, ``shade`` and
+``shade_albedo`` the launches of each rank of phases 4f and 5i), the
 card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1750,6 +1775,181 @@ def phase_suite(dev, results):
                                    "--height", str(H), "--device", dev.type])
 
 
+def phase_mesh_main_path(dev, results, card):
+    """Phase 4f: suite row 6 (``cornell_sharded_mesh``) at 1280x720 through
+    ``benchmarks.suite.run_sharded_bench``: the glTF Cornell box, spp 1 a
+    rank, depth 3, correlated sampler on, over ``factor_mesh(cards)`` (one
+    card: mesh (1,1) over NCCL, in this process); one warm-up frame, then
+    3 batches of 8 frames from a fresh accumulator. Each rank's counters
+    grow by 6 trace and 3 shade launches a frame; on mesh (1,1) the last
+    batch's image is bit-equal to ``Engine``'s 8 frames (the salt is 0).
+    Then the engine's and the mesh's batches of the same frames in turns
+    (engine, mesh, mesh, engine) on one clock."""
+    import torch
+
+    from vkrt_tpu_torch.benchmarks import suite
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.parallel.mesh import factor_mesh, launch
+    from vkrt_tpu_torch.scene import load_cornell
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    t_phase = time.perf_counter()
+    out = suite.run_sharded_bench("cornell_sharded_mesh", W, H, 8, DEPTH, dev, batches=3)
+    rec = out["rec"]
+    for ms, mrays, rpf in out["batches"]:
+        log(f"[mesh] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
+    best = min(out["batches"])
+    frames = 1 + 3 * 8
+    want = {k: v * frames for k, v in path_launches(DEPTH, False).items()}
+    for rank, launches in enumerate(out["launches"]):
+        if launches != want:
+            raise AssertionError(f"rank {rank}: launch counts {launches} != {want}")
+    eng = Engine(load_cornell(device=dev), W, H, path_settings(DEPTH), Camera(), CLEAR)
+    for _ in range(8):
+        eng.render_frame()
+    ref = eng.accum[eng._inv_perm].cpu()
+    if rec["mesh"] == "tile=1,spp=1":
+        if not torch.equal(out["accum"].view(torch.int32), ref.view(torch.int32)):
+            diff = (out["accum"] - ref).abs().max().item()
+            raise AssertionError(f"mesh (1,1) differs from the engine (max abs {diff:.3g})")
+        verdict = "bit-equal to the engine's 8 frames"
+    else:
+        verdict = "not compared bit for bit (more than one rank)"
+    log(f"[mesh] suite row 6 at {W}x{H} ({card}), mesh {rec['mesh']} over {rec['backend']}: "
+        f"best batch {best[0]:.4f} ms/frame, {best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame; "
+        f"launches {out['launches']} over {frames} frames; {verdict}")
+
+    # the same frames in turns with the engine (engine, mesh, mesh, engine),
+    # each the best of 3 batches of 8 from frame 0 on the host clock between
+    # device synchronisations: phase 4's best batch is another moment of a
+    # host whose cores are shared
+    def engine_turn():
+        times = []
+        for _ in range(3):
+            eng.reset_frame()
+            sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(8):
+                eng.render_frame()
+            sync(dev)
+            times.append((time.perf_counter() - t0) / 8 * 1e3)
+        return min(times)
+
+    turns = {"engine": [], "mesh": []}
+    for who in ("engine", "mesh", "mesh", "engine"):
+        turns[who].append(engine_turn() if who == "engine" else min(
+            b[0] for b in launch(suite.sharded_bench_rank, *factor_mesh(torch.cuda.device_count()),
+                                 dev, "turn", W, H, 8, DEPTH, 3)["batches"]))
+    log(f"[mesh] in turns with the engine (the same frames, best of 3 batches of 8 each): "
+        f"engine {turns['engine'][0]:.4f} / {turns['engine'][1]:.4f}, mesh "
+        f"{turns['mesh'][0]:.4f} / {turns['mesh'][1]:.4f} ms/frame; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for name in ("trace", "shade", "shade_albedo"):
+        results[name]["mesh_launches"] = [c[name] for c in out["launches"]]
+    results["mesh"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
+                       "rays_per_frame": best[2], "mesh": rec["mesh"],
+                       "backend": rec["backend"], "turns_ms": turns}
+
+
+def phase_mesh_hybrid(dev, results, city, card):
+    """Phase 5i: suite row 5's stack under a (4,1) mesh: 4 ranks sharing the
+    card (gloo), each with its own ``make_city(grid=96)``, 3 frames of the
+    row-5 fly-through at 1280x720 (hybrid, shadows, AO, GI, depth 3, the
+    temporal denoiser in its band form: ring halos and the gathered
+    history), correlated sampler off; every frame's composite gathered and
+    held against the single-process ``Engine`` on the same poses by the
+    display gate, with the max abs difference printed. Each rank's
+    counters grow by 6 trace and 2 albedo shade launches a frame."""
+    from vkrt_tpu_torch.benchmarks import CITY_GRID
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.models.post import composite
+    from vkrt_tpu_torch.parallel.mesh import launch
+    from vkrt_tpu_torch.parallel.render import run_jobs
+
+    t_phase = time.perf_counter()
+    frames = 3
+    poses = [flythrough_pose(k) for k in range(frames)]
+    settings = denoised_settings().replace(corr_sampler=False)
+    job = dict(kind="hybrid", scene=("city", CITY_GRID), backend="auto", cameras=poses,
+               width=W, height=H, depth=HYBRID_DEPTH, clear_color=CLEAR, use_shadows=True,
+               use_ao=True, use_gi=True, use_denoiser=True, corr=False,
+               gather_each_frame=True)
+    (res,) = launch(run_jobs, 4, 1, dev, [job])
+    wall = time.perf_counter() - t_phase
+    per_frame = hybrid_launches(HYBRID_DEPTH, True)
+    want = {k: v * frames for k, v in per_frame.items()}
+    for rank, launches in enumerate(res["launches"]):
+        if launches != want:
+            raise AssertionError(f"rank {rank}: launch counts {launches} != {want}")
+    eng = Engine(city, W, H, settings, poses[0], CLEAR)
+    worst = []
+    for k, img in enumerate(res["images"]):
+        eng.camera = poses[k]
+        ref = eng.render_frame().cpu().numpy().astype(np.float64)
+        got = composite(img["color"][:, :3], img["accum"], rt_mode=0, view_accumulated=False,
+                        use_gi=True).numpy().astype(np.float64)
+        if not np.isfinite(got).all() or float(got.max()) <= 0.0:
+            raise AssertionError(f"mesh hybrid frame {k}: not finite and non-black")
+        p99, diverged, rmse, ok = gate_numbers(got, ref)
+        worst.append(float(np.abs(got - ref).max()))
+        log(f"[mesh-hybrid] frame {k}: (4,1) ranks vs the engine: p99 {p99:.3g}, diverged "
+            f"{diverged:.4f}, rmse {rmse:.3g}, max abs diff {worst[-1]:.3g}")
+        if not ok:
+            raise AssertionError(f"mesh hybrid frame {k}: display gate failed")
+    if abs(res["rays"] - eng.total_rays) > 1e-3 * eng.total_rays:
+        raise AssertionError(f"rays {res['rays']} against the engine's {eng.total_rays}")
+    log(f"[mesh-hybrid] row 5's stack at {W}x{H} over a (4,1) mesh over {res['backend']}, "
+        f"4 ranks sharing one card ({card}): {frames} frames in {res['seconds']:.3f} s on "
+        f"rank 0 ({res['seconds'] / frames * 1e3:.1f} ms/frame, each frame's image gathered; "
+        f"a parity run, not a speed number for a mesh); launches per rank "
+        f"{res['launches']}; rays {res['rays']:.0f} (engine {eng.total_rays:.0f}); phase "
+        f"{time.perf_counter() - t_phase:.1f} s, {wall:.1f} s of it the ranks' spawn, "
+        f"scenes and frames")
+    for name in ("trace", "shade", "shade_albedo"):
+        results[name]["mesh_hybrid_launches"] = [c[name] for c in res["launches"]]
+    results["mesh_hybrid"] = {"seconds": res["seconds"], "max_abs_diff": worst,
+                              "backend": res["backend"]}
+
+
+def phase_mesh_app(dev):
+    """Phase 5j: ``python -m vkrt_tpu_torch.app --mesh 2,2 --spp 2`` on the
+    Cornell box at 1280x720, 2 frames (4 ranks sharing the card, gloo):
+    finite and non-black, and in mean agreement with the unsharded app's
+    spp-2 render (|mean difference| of the displayed images < 0.02);
+    then ``dryrun_multichip(4)`` on CPU ranks."""
+    from pathlib import Path
+
+    from vkrt_tpu_torch import app
+    from vkrt_tpu_torch.parallel.dryrun import dryrun_multichip
+    from vkrt_tpu_torch.utils.png import decode_png
+
+    t_phase = time.perf_counter()
+    work = Path("vkrt_tpu_torch/build/mesh_smoke")
+    work.mkdir(parents=True, exist_ok=True)
+    args = ["--device", dev.type, "--procedural", "cornell", "--mode", "path", "--spp", "2",
+            "--frames", "2", "--width", str(W), "--height", str(H)]
+    res = subprocess.run([sys.executable, "-m", "vkrt_tpu_torch.app", *args, "--mesh", "2,2",
+                          "--out", str(work / "mesh.png")],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"app --mesh 2,2 exited {res.returncode}:\n{res.stdout}\n"
+                             f"{res.stderr[-4000:]}")
+    log("[mesh-app] " + " | ".join(res.stdout.strip().splitlines()))
+    if app.main(args + ["--out", str(work / "ref.png")]) != 0:
+        raise AssertionError("the unsharded app failed")
+    img, ref = (decode_png((work / f).read_bytes())[..., :3].astype(np.float64) / 255.0
+                for f in ("mesh.png", "ref.png"))
+    if img.shape != (H, W, 3) or img.std() < 5.0 / 255.0 or img.max() <= 0.0:
+        raise AssertionError(f"app --mesh 2,2: {img.shape}, std {img.std()}")
+    delta = abs(img.mean() - ref.mean())
+    log(f"[mesh-app] --mesh 2,2 --spp 2 against the unsharded spp-2 app: displayed means "
+        f"{img.mean():.5f} / {ref.mean():.5f} (|difference| {delta:.5f}, limit 0.02)")
+    if delta >= 0.02:
+        raise AssertionError(f"the mesh image's mean is off by {delta:.5f}")
+    out = dryrun_multichip(4)
+    log(f"[mesh-app] dryrun_multichip(4): {out}; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def sync(dev) -> None:
     import torch
 
@@ -2191,6 +2391,7 @@ def main() -> int:
                         ("4d denoised main path",
                          lambda: phase_denoised_main_path(dev, results, city.scene, card)),
                         ("4e sponzoid main path", lambda: phase_sponzoid(dev, results, card)),
+                        ("4f mesh main path", lambda: phase_mesh_main_path(dev, results, card)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
                         ("5b city end to end", lambda: phase_city_end_to_end(dev)),
                         ("5c general loop", lambda: phase_general_loop(dev)),
@@ -2200,6 +2401,9 @@ def main() -> int:
                         ("5g instances end to end",
                          lambda: phase_instances_end_to_end(dev, results)),
                         ("5h app", lambda: phase_app(dev)),
+                        ("5i mesh hybrid", lambda: phase_mesh_hybrid(dev, results, city.scene,
+                                                                     card)),
+                        ("5j mesh app", lambda: phase_mesh_app(dev)),
                         ("6 probes", lambda: phase_probes(dev, results, pools["shadow"],
                                                           city)),
                         ("7 suite", lambda: phase_suite(dev, results))):

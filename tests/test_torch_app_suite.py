@@ -187,7 +187,7 @@ def test_suite_rows_1_2(capsys):
         assert JAX_ROW_KEYS <= set(r) and r["device"] == "cpu"
         assert r["frames"] == 2 and r["resolution"] == "32x24" and r["mrays_per_s"] > 0
     with pytest.raises(SystemExit):
-        suite.main(["--device", "cpu", "--configs", "6"])  # row 6 is not ported
+        suite.main(["--device", "cpu", "--configs", "9"])  # no such row
     with pytest.raises(AssertionError, match="non-finite"):
         suite._assert_finite_image("x", np.array([0.0, np.nan]))
     with pytest.raises(AssertionError, match="all-zero"):

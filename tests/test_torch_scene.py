@@ -170,5 +170,5 @@ def test_port_imports_no_jax():
                  "models.shading", "ops.nrd", "models.gbuffer", "models.hybrid",
                  "models.post", "models.denoiser", "ops.alpha", "utils.metrics",
                  "scene_instances", "utils.sponzoid", "utils.profiling", "utils.checkpoint",
-                 "benchmarks.suite"):
+                 "benchmarks.suite", "parallel.mesh", "parallel.render", "parallel.dryrun"):
         assert f"vkrt_tpu_torch.{name}" in names, name

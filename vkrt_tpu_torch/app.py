@@ -10,9 +10,14 @@ Usage:
     python -m vkrt_tpu_torch.app --scene path/to.gltf --mode path --depth 3 --stats
     python -m vkrt_tpu_torch.app --scene path/to.gltf --orbit --frames 8 --out fly.png
     python -m vkrt_tpu_torch.app --procedural cornell --interactive < commands.txt
+    python -m vkrt_tpu_torch.app --procedural cornell --mode path --mesh 2,2 --spp 2
 
 Renders on the card (``--device cuda``, the default: it fails when there is
 no card) or, with ``--device cpu``, through the kernels' plain versions.
+``--mesh TILE,SPP`` renders over a (tile, spp) mesh of ranks
+(``vkrt_tpu_torch/parallel``), one process a rank, rank r on card
+r % count: NCCL when every rank has a card of its own, gloo when ranks
+share one (and on the CPU).
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import os
 import sys
 import time
 
+import torch
+
 from vkrt_tpu_torch.config import (
     DEFAULT_CLEAR_COLOR,
     EngineConfig,
@@ -31,7 +38,34 @@ from vkrt_tpu_torch.config import (
     resolve_scene_path,
 )
 from vkrt_tpu_torch.ops.trace import BACKENDS
+from vkrt_tpu_torch.utils.camera import Camera
 from vkrt_tpu_torch.utils.png import write_png
+
+
+def scene_from_args(args, cfg: EngineConfig, device, log: bool = True):
+    """The scene the arguments name, on ``device``."""
+    from vkrt_tpu_torch import scene as scene_mod
+
+    t0 = time.time()
+    if args.procedural == "cornell":
+        scene = scene_mod.make_cornell_box(device=device)
+    elif args.procedural == "city":
+        scene = (scene_mod.make_city(grid=args.city_grid, device=device)
+                 if args.city_grid else scene_mod.make_city(device=device))
+    elif args.scene:
+        scene = scene_mod.load_scene(args.scene, device=device)
+    else:
+        path = resolve_scene_path(cfg)
+        if os.path.exists(path):
+            scene = scene_mod.load_scene(path, device=device)
+        else:
+            if log:
+                print(f"scene {path} not found; using procedural cornell", file=sys.stderr)
+            scene = scene_mod.make_cornell_box(device=device)
+    if log:
+        print(f"scene loaded: {scene.num_tris} tris, {scene.num_lights} lights "
+              f"({time.time() - t0:.2f}s) on {device}")
+    return scene
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -84,6 +118,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "benchmark suite's city; default 16)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="cpu runs the kernels' plain versions")
+    p.add_argument("--mesh", default=None, metavar="TILE,SPP",
+                   help="render over a (tile, spp) mesh of ranks, one process a "
+                        "rank: pixel bands on the tile axis, sample groups on the "
+                        "spp axis (e.g. --mesh 4,2 starts 8 ranks; ranks that "
+                        "share a card, or the CPU, use gloo, else NCCL)")
     p.add_argument("--save-state", default=None,
                    help="checkpoint the accumulation state to this .npz on exit")
     p.add_argument("--load-state", default=None,
@@ -119,31 +158,6 @@ def main(argv=None) -> int:
     width = args.width or cfg.width
     height = args.height or cfg.height
 
-    from vkrt_tpu_torch import scene as scene_mod
-    from vkrt_tpu_torch.engine import Engine
-    from vkrt_tpu_torch.models.post import to_u8_image
-    from vkrt_tpu_torch.utils import checkpoint
-    from vkrt_tpu_torch.utils.camera import Camera, orbit_camera
-    from vkrt_tpu_torch.utils.profiling import FrameStats, device_trace, timed_frame
-
-    t0 = time.time()
-    if args.procedural == "cornell":
-        scene = scene_mod.make_cornell_box(device=device)
-    elif args.procedural == "city":
-        scene = (scene_mod.make_city(grid=args.city_grid, device=device)
-                 if args.city_grid else scene_mod.make_city(device=device))
-    elif args.scene:
-        scene = scene_mod.load_scene(args.scene, device=device)
-    else:
-        path = resolve_scene_path(cfg)
-        if os.path.exists(path):
-            scene = scene_mod.load_scene(path, device=device)
-        else:
-            print(f"scene {path} not found; using procedural cornell", file=sys.stderr)
-            scene = scene_mod.make_cornell_box(device=device)
-    print(f"scene loaded: {scene.num_tris} tris, {scene.num_lights} lights "
-          f"({time.time() - t0:.2f}s) on {device}")
-
     settings = RenderSettings(
         samples=args.spp,
         depth=args.depth,
@@ -165,6 +179,16 @@ def main(argv=None) -> int:
         fov_deg=args.fov,
     )
     clear = tuple(args.clear_color) + (1.0,) if args.clear_color else DEFAULT_CLEAR_COLOR
+    if args.mesh:
+        return run_sharded(args, cfg, settings, cam, clear, width, height, device)
+
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.models.post import to_u8_image
+    from vkrt_tpu_torch.utils import checkpoint
+    from vkrt_tpu_torch.utils.camera import orbit_camera
+    from vkrt_tpu_torch.utils.profiling import FrameStats, device_trace, timed_frame
+
+    scene = scene_from_args(args, cfg, device)
     engine = Engine(scene, width, height, settings, cam, clear)
     if args.load_state:
         ok = checkpoint.restore(engine, args.load_state)
@@ -205,6 +229,85 @@ def main(argv=None) -> int:
     write_png(args.out, img)
     print(f"wrote {args.out}")
     return 0
+
+
+def run_sharded(args, cfg, settings, cam, clear, width, height, device) -> int:
+    """``--mesh TILE,SPP``: render over a (tile, spp) mesh of ranks
+    (``parallel/render.py``), pixel bands on the tile axis, sample groups on
+    the spp axis (one mean a frame). The arguments are checked here, before
+    any rank starts (exit code 2, as the JAX app); rank 0 writes the PNG."""
+    from vkrt_tpu_torch.parallel.mesh import launch
+
+    try:
+        n_tile, n_spp = (int(x) for x in args.mesh.split(","))
+    except ValueError:
+        print(f"--mesh wants TILE,SPP, got {args.mesh!r}", file=sys.stderr)
+        return 2
+    if n_tile < 1 or n_spp < 1:
+        print(f"--mesh {args.mesh}: both axes need at least one rank", file=sys.stderr)
+        return 2
+    if settings.rt_mode == 1 and settings.samples % n_spp != 0:
+        print(f"--spp {settings.samples} must be divisible by the spp mesh "
+              f"axis ({n_spp})", file=sys.stderr)
+        return 2
+    if settings.rt_mode == 0 and n_spp != 1:
+        print("hybrid mode shards pixels only; use --mesh N,1", file=sys.stderr)
+        return 2
+    if (width * height) % n_tile:
+        print(f"--mesh {args.mesh}: {width}x{height} pixels do not split into "
+              f"{n_tile} bands", file=sys.stderr)
+        return 2
+    use_dn = settings.rt_mode == 0 and settings.use_denoiser and settings.use_gi
+    if use_dn and height % n_tile != 0:
+        print(f"--denoiser under a mesh needs whole row bands: height "
+              f"{height} not divisible by tile axis {n_tile}", file=sys.stderr)
+        return 2
+    where = ("the CPU" if device.type == "cpu" else
+             f"{torch.cuda.device_count()} card(s)")
+    rays, dt, backend = launch(mesh_rank, n_tile, n_spp, device, args, cfg, settings, cam,
+                               clear, width, height)
+    mrays = rays / dt / 1e6 if dt > 0 else 0.0
+    print(f"sharded mesh(tile={n_tile}, spp={n_spp}) over {backend}, {n_tile * n_spp} ranks "
+          f"on {where}: {args.frames} frames at {width}x{height} in {dt:.3f}s "
+          f"({mrays:.1f} Mrays/s; set-up included: the first collective's communicator, "
+          f"the gather, the PNG)")
+    print(f"wrote {args.out}")
+    return 0
+
+
+def mesh_rank(mesh, args, cfg, settings, cam, clear, width, height):
+    """One rank of ``--mesh``: the scene on the rank's device, then the
+    frames; rank 0 composites and writes the PNG. Returns (total rays,
+    seconds from the first frame to the written image, the backend)."""
+    from vkrt_tpu_torch.models import post
+    from vkrt_tpu_torch.ops.trace import make_tracer
+    from vkrt_tpu_torch.parallel import render
+
+    scene = scene_from_args(args, cfg, mesh.device, log=mesh.tile == mesh.spp == 0)
+    tracer = make_tracer(scene, settings.backend, alpha=settings.alpha_test)
+    cam_m = cam.matrices(width, height, mesh.device)
+    t0 = time.time()
+    if settings.rt_mode == 1:
+        accum, rays = render.render_sharded(
+            scene, tracer, cam_m, mesh, width=width, height=height,
+            samples=settings.samples, depth=settings.depth, frames=args.frames,
+            clear_color=clear, corr=settings.corr_sampler)
+        out = post.composite(accum, None, rt_mode=1,
+                             view_accumulated=settings.view_accumulated,
+                             use_gi=settings.use_gi)
+    else:
+        (img,), rays = render.render_sharded_hybrid(
+            scene, tracer, [cam_m] * args.frames, mesh, width=width, height=height,
+            depth=settings.depth, clear_color=clear, use_shadows=settings.use_shadows,
+            use_ao=settings.use_ao, use_gi=settings.use_gi,
+            use_denoiser=settings.use_denoiser and settings.use_gi,
+            corr=settings.corr_sampler)
+        out = post.composite(img["color"][:, :3], img["accum"], rt_mode=0,
+                             view_accumulated=settings.view_accumulated,
+                             use_gi=settings.use_gi)
+    if mesh.tile == mesh.spp == 0:
+        write_png(args.out, post.to_u8_image(out, width, height))
+    return rays, time.time() - t0, mesh.backend
 
 
 def run_interactive(engine, args, width, height) -> int:

@@ -9,6 +9,10 @@
 5. ``city_flythrough_denoised``: hybrid with the temporal denoiser, the
    camera moving every frame, plus ``rmse_vs_converged`` and
    ``rmse_noisy_1frame``;
+6. ``cornell_sharded_mesh``: the glTF Cornell box in path mode, depth 3,
+   the correlated sampler on, over a (tile, spp) mesh of ranks
+   (``parallel/``) of ``factor_mesh(cards)`` (one card: mesh (1, 1), which
+   is bit-equal to the engine); one spp group per rank, spp = n_spp;
 7. ``bigcity_full_pathtrace``: ``make_city(grid=160)``, depth 4;
 8. ``sponzoid_disk_pathtrace``: the on-disk sponzoid (``utils/sponzoid.py``,
    tess 4, 161,920 triangles, four textured materials with normal maps,
@@ -16,8 +20,6 @@
    depth 3. Its textures are the PNG form, which decodes at full size
    without PIL (the row refuses a texture under 256 px); the asset and the
    rendered PNG go to ``vkrt_tpu_torch/build/assets/sponzoid/``.
-
-Row 6 (the sharded mesh) waits for the port's multi-device path.
 
 Usage: python -m vkrt_tpu_torch.benchmarks.suite [--width W --height H
 --frames N --configs 1,2,3 --device cuda|cpu]. Prints one JSON line per
@@ -40,7 +42,7 @@ import torch
 from vkrt_tpu_torch.device import select
 from vkrt_tpu_torch.utils.profiling import synchronize
 
-ROWS = ("1", "2", "3", "4", "5", "7", "8")
+ROWS = ("1", "2", "3", "4", "5", "6", "7", "8")
 ASSET_DIR = Path(__file__).resolve().parent.parent / "build" / "assets" / "sponzoid"
 SPONZOID_TESS = 4
 MIN_TEXTURE_PX = 256
@@ -101,6 +103,76 @@ def run_engine_bench(name, scene, settings, width, height, frames, camera_fn=Non
         rec.update(extra_metrics_fn(final, eng))
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def run_sharded_bench(name, width, height, frames, depth, device, batches: int = 1):
+    """Row 6: Cornell path tracing over a ``factor_mesh`` of the cards (one
+    rank on the CPU), ``samples = n_spp``. One warm-up frame, then
+    ``batches`` batches of ``frames`` frames from a fresh accumulator,
+    each timed on the host clock between two device synchronisations (the
+    row's numbers are the last batch's). Prints the row's JSON object (the
+    JAX suite's keys, ``mesh`` as ``tile=..,spp=..``) and returns
+    ``sharded_bench_rank``'s result."""
+    from vkrt_tpu_torch.parallel.mesh import factor_mesh, launch
+
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    n_tile, n_spp = factor_mesh(n)
+    out = launch(sharded_bench_rank, n_tile, n_spp, device, name, width, height, frames,
+                 depth, batches)
+    print(json.dumps(out["rec"]), flush=True)
+    return out
+
+
+def sharded_bench_rank(mesh, name, width, height, frames, depth, batches):
+    """One rank of row 6. Returns {"rec": the row, "batches": [(ms/frame,
+    Mrays/s, rays/frame)] a batch, "launches": every rank's kernel A and B
+    launches over the warm-up and the batches, "accum": the last batch's
+    accumulator in scanline order (N, 3)}."""
+    from vkrt_tpu_torch.config import RenderSettings
+    from vkrt_tpu_torch.ops.trace import make_tracer
+    from vkrt_tpu_torch.parallel import render
+    from vkrt_tpu_torch.parallel.mesh import all_gather_rows, gather_objects
+    from vkrt_tpu_torch.scene import load_cornell
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    scene = load_cornell(device=mesh.device)
+    step, inv_perm = render.make_sharded_pathtrace_step(
+        scene, make_tracer(scene, "auto"), mesh, width=width, height=height,
+        samples=mesh.shape["spp"], depth=depth, corr=RenderSettings().corr_sampler)
+    cam = Camera().matrices(width, height, mesh.device)
+    clear = (1.0, 1.0, 1.0, 1.0)
+    render.reset_launch_counts()
+    accum, rays = step(cam, 0, render.zeros_accum(mesh, width, height), clear)  # warm-up
+    float(rays)
+    timed = []
+    for _ in range(batches):
+        accum = render.zeros_accum(mesh, width, height)
+        rays = torch.zeros((), dtype=torch.float32, device=mesh.device)
+        synchronize(mesh.device)
+        t0 = time.perf_counter()
+        for f in range(frames):
+            accum, r = step(cam, f, accum, clear)
+            rays = rays + r
+        synchronize(mesh.device)
+        dt = time.perf_counter() - t0
+        timed.append((dt / frames * 1e3, float(rays) / dt / 1e6, float(rays) / frames))
+    launches = gather_objects(render.launch_counts(), mesh)
+    image = all_gather_rows(accum, mesh)[inv_perm]
+    _assert_finite_image(name, image.cpu().numpy())
+    ms, mrays, _ = timed[-1]
+    rec = {
+        "config": name,
+        "mesh": f"tile={mesh.shape['tile']},spp={mesh.shape['spp']}",
+        "backend": mesh.backend,
+        "ms_per_frame": round(ms, 2),
+        "fps": round(1e3 / ms, 2),
+        "mrays_per_s": round(mrays, 2),
+        "frames": frames,
+        "resolution": f"{width}x{height}",
+        "device": (torch.cuda.get_device_name(mesh.device) if mesh.device.type == "cuda"
+                   else "cpu"),
+    }
+    return {"rec": rec, "batches": timed, "launches": launches, "accum": image}
 
 
 def load_sponzoid_png(device):
@@ -192,6 +264,8 @@ def main(argv=None):
             results.append(run_engine_bench(
                 "city_flythrough_denoised", city, den, w, h, n, camera_fn=cam5,
                 extra_metrics_fn=_rmse_vs_converged))
+    if "6" in wanted:
+        results.append(run_sharded_bench("cornell_sharded_mesh", w, h, n, 3, device)["rec"])
     if "8" in wanted:
         t0 = time.time()
         sponz = load_sponzoid_png(device)

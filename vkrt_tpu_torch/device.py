@@ -6,8 +6,11 @@ the sources and flags, and load with ``ctypes``. Each source compiles in
 its own ``nvcc`` process, all started together, and one ``nvcc`` links the
 objects. Each C entry point takes plain pointers and the CUDA stream and
 returns ``cudaGetLastError()``; ``check`` turns a non-zero code into an
-exception. Nothing here runs at import: the CPU tests import every module
-of the package on a machine with no ``nvcc``.
+exception. ``launch`` calls an entry point with the tensor's card made
+current: the runtime launches on the current card, so a tensor on another
+card than the current one would otherwise get its kernel, and its stream,
+on the wrong card. Nothing here runs at import: the CPU tests import every
+module of the package on a machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -232,3 +235,10 @@ def check(name: str, err: int) -> None:
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
+
+def launch(fn: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``fn`` with ``args`` and the current stream
+    of ``device``, with ``device`` made the current card for the call; raise
+    on a non-zero ``cudaGetLastError()``."""
+    with torch.cuda.device(device):
+        check(fn, getattr(kernels(), fn)(*args, stream_ptr(device)))

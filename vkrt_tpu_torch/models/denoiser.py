@@ -22,7 +22,9 @@ Everything is image-space tensor math except the one history gather (4
 bilinear taps a pixel). The taps of the à-trous filter are periodic row
 shifts written as "pad k halo rows, then slice" (``_pad_rows`` with a
 ``halo_fn``) followed by a periodic column roll, as in the JAX package, so
-a row-band form only has to supply another halo. The projective products
+the row-band form (``denoise_temporal_tile``, a frame's bands on the tile
+axis of a ``parallel.mesh.RenderMesh``) only supplies another halo: the
+neighbour bands' rows over the ring (``_ring_halo``). The projective products
 are explicit multiply-adds, never a matmul (which the card may run as
 TF32). On the card this is ordinary PyTorch: the JAX package has no Pallas
 kernel for it.
@@ -119,6 +121,22 @@ def _periodic_halo(x, k: int):
     return x[-k:], x[:k]
 
 
+def _ring_halo(mesh):
+    """The halo of a band on the mesh's tile axis: its top halo is the
+    previous band's last k rows, its bottom halo the next band's first k
+    rows, exchanged over the ring (which wraps, as roll's rows do). One
+    band is the whole frame: the periodic self-wrap."""
+    from vkrt_tpu_torch.parallel.mesh import ring_exchange
+
+    if mesh.shape["tile"] == 1:
+        return _periodic_halo
+
+    def fetch(x, k: int):
+        return ring_exchange(x[-k:], x[:k], mesh)
+
+    return fetch
+
+
 def _pad_rows(x, k: int, halo_fn):
     top, bottom = halo_fn(x, k)
     return torch.cat([top, x, bottom], dim=0)
@@ -185,16 +203,32 @@ def reproject(state: DenoiserState, world_pos, view_z, normal, width: int, heigh
     )
 
 
-def _neighborhood_clamp(hist_rad, cur_rad, width: int, height: int):
-    """Clamp history to the 3x3 box of the current frame (anti-ghosting),
-    full frame. Edge-replicated shifts (an index clamp, the JAX package's
-    ``mode="edge"`` pad), not a roll: wrapped taps would let border pixels
-    clamp against the opposite edge of the frame."""
+def _neighborhood_clamp(hist_rad, cur_rad, width: int, height: int, halo_fn=None,
+                        mesh=None):
+    """Clamp history to the 3x3 box of the current frame (anti-ghosting).
+    Edge-replicated shifts (an index clamp, the JAX package's ``mode="edge"``
+    pad), not a roll: wrapped taps would let border pixels clamp against
+    the opposite edge of the frame.
+
+    With ``halo_fn`` (``_ring_halo(mesh)``; ``height`` the band's rows) the
+    band's inner borders take the neighbour bands' rows, and the first
+    band's top halo and the last band's bottom halo repeat their own edge
+    row, which is the full-frame edge pad exactly. The ring's wrap is not
+    used there: this halo rule is not the à-trous filter's."""
     img = cur_rad.reshape(height, width, 3)
     dev = img.device
-    rows = torch.clamp(torch.arange(-1, height + 1, device=dev), 0, height - 1)
+    if halo_fn is None:
+        rows = torch.clamp(torch.arange(-1, height + 1, device=dev), 0, height - 1)
+        img_rows = img[rows]
+    else:
+        top, bottom = halo_fn(img, 1)  # every band takes part in the exchange
+        if mesh.tile == 0:
+            top = img[:1]
+        if mesh.tile == mesh.shape["tile"] - 1:
+            bottom = img[-1:]
+        img_rows = torch.cat([top, img, bottom], dim=0)
     cols = torch.clamp(torch.arange(-1, width + 1, device=dev), 0, width - 1)
-    padded = img[rows][:, cols]
+    padded = img_rows[:, cols]
     lo = img
     hi = img
     for dy in (-1, 0, 1):
@@ -214,7 +248,9 @@ def atrous_filter(radiance, normal, view_z, width: int, height: int, iterations:
     ``hit_dist_norm``: optional (N,) in [0,1], which scales the spatial
     kernel weight so short-hit-distance (contact) regions blur less.
     ``halo_fn``: the row-halo source; None is the full frame (periodic
-    self-wrap, the roll formulation)."""
+    self-wrap, the roll formulation), ``_ring_halo(mesh)`` a band whose
+    neighbours' rows come over the ring (the ring's wrap is roll's
+    periodicity, so the bands give the full-frame image)."""
     h, w = height, width
     halo = _periodic_halo if halo_fn is None else halo_fn
     # the largest tap reach must fit in one band (and in the self-wrap slices)
@@ -301,13 +337,62 @@ def denoise_temporal(state: DenoiserState, diff_rad_hitd, norm_rough_packed, vie
 
     All buffers in image (row-major) order. Returns (filtered radiance
     (N,3), new DenoiserState)."""
+    return _denoise(state, diff_rad_hitd, norm_rough_packed, view_z, world_pos,
+                    view_proj, width, height, height, iterations)
+
+
+def _gather_history(state: DenoiserState, mesh) -> DenoiserState:
+    """The whole frame's history from the bands': the six per-pixel arrays
+    packed into one (n, 10) block, gathered over the tile axis in one
+    collective."""
+    from vkrt_tpu_torch.parallel.mesh import all_gather_rows
+
+    packed = torch.cat([state.hist_rad, state.hist_m1[:, None], state.hist_m2[:, None],
+                        state.hist_len[:, None], state.prev_view_z[:, None],
+                        state.prev_normal], dim=1)
+    full = all_gather_rows(packed, mesh)
+    return state._replace(hist_rad=full[:, 0:3], hist_m1=full[:, 3], hist_m2=full[:, 4],
+                          hist_len=full[:, 5], prev_view_z=full[:, 6],
+                          prev_normal=full[:, 7:10])
+
+
+def denoise_temporal_tile(state: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z,
+                          world_pos, view_proj, width: int, height: int, mesh,
+                          iterations: int = 3):
+    """``denoise_temporal`` on this rank's band of whole rows (its band of
+    the tile axis of ``mesh``), per pixel equal to the full-frame filter.
+
+    * reprojection is a gather from anywhere in the frame (camera motion
+      can carry a pixel's history across any band border), so the bands'
+      histories are gathered (about 10 floats a pixel) and each band
+      reprojects its own rows against the whole;
+    * the clamp and the à-trous filter are stencils: boundary rows travel
+      to the neighbour bands over the ring (``_ring_halo``), never a
+      whole-frame gather.
+
+    ``height`` is the whole frame's height; the per-pixel inputs and
+    ``state`` are the band's rows. Returns (filtered band, new band
+    state)."""
+    if world_pos.shape[0] % width:
+        raise ValueError("denoise_temporal_tile needs whole row bands")
+    return _denoise(_gather_history(state, mesh), diff_rad_hitd, norm_rough_packed,
+                    view_z, world_pos, view_proj, width, height,
+                    world_pos.shape[0] // width, iterations, _ring_halo(mesh), mesh)
+
+
+def _denoise(history: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z, world_pos,
+             view_proj, width: int, height: int, rows: int, iterations: int, halo_fn=None,
+             mesh=None):
+    """The temporal denoise of ``rows`` rows (the whole frame, or a band
+    with its ``halo_fn``) reprojecting against ``history`` (the whole
+    frame's)."""
     unpacked = nrd.unpack_radiance_and_norm_hit_dist(diff_rad_hitd)
     cur_rad = unpacked[..., :3]
     hd_norm = unpacked[..., 3]
     normal, _rough, _ = nrd.unpack_normal_and_roughness(norm_rough_packed)
 
-    h_rad, h_m1, h_m2, h_len = reproject(state, world_pos, view_z, normal, width, height)
-    h_rad = _neighborhood_clamp(h_rad, cur_rad, width, height)
+    h_rad, h_m1, h_m2, h_len = reproject(history, world_pos, view_z, normal, width, height)
+    h_rad = _neighborhood_clamp(h_rad, cur_rad, width, rows, halo_fn, mesh)
 
     new_len = torch.clamp_max(h_len + 1.0, MAX_HISTORY)
     alpha = 1.0 / new_len
@@ -319,8 +404,8 @@ def denoise_temporal(state: DenoiserState, diff_rad_hitd, norm_rough_packed, vie
     # short history: inflate the variance so the spatial filter works harder
     variance = variance + torch.where(new_len < 4.0, 0.5 / new_len, 0.0)
 
-    filtered = atrous_filter(rad_acc, normal, view_z, width, height, iterations,
-                             variance=variance, hit_dist_norm=hd_norm)
+    filtered = atrous_filter(rad_acc, normal, view_z, width, rows, iterations,
+                             variance=variance, hit_dist_norm=hd_norm, halo_fn=halo_fn)
     # SVGF feeds the first filtered result back as next frame's history;
     # this keeps the final filtered image (stabler under motion)
     new_state = DenoiserState(hist_rad=filtered, hist_m1=m1, hist_m2=m2, hist_len=new_len,

@@ -53,17 +53,19 @@ def hybrid_corr_seed(frame: int) -> int:
 
 def hybrid_effects(scene, tracer, gbuf: GBuffer, cam, seed, frame: int, accum_rt, *,
                    depth: int, use_shadows: bool, use_ao: bool, use_gi: bool,
-                   clamp_weights=False, corr: bool = False):
+                   clamp_weights=False, corr: bool = False, corr_salt=None):
     """The raytraceHybrid.rgen main() body. Returns (new_accum,
     diff_rad_hitd, seed, rays).
 
     ``corr``: correlated per-block sampler: the shadow light pick, the AO
     hemisphere draws, the GI lobe direction and the GI bounce chain each
-    share one draw per 1024-ray block a frame."""
+    share one draw per 1024-ray block a frame. ``corr_salt``: uint32 added
+    to the tables' seed, decorrelating them across a mesh's bands (None or
+    0: the unsharded stream)."""
     n = gbuf.color.shape[0]
     device = gbuf.color.device
     n_lights = scene.num_lights
-    corr_seed = hybrid_corr_seed(frame) if corr else None
+    corr_seed = (hybrid_corr_seed(frame) + (corr_salt or 0)) & MASK32 if corr else None
 
     def corr_tab(key):
         return corr_draws(n, corr_seed, key, device=device)
@@ -180,7 +182,8 @@ def hybrid_effects(scene, tracer, gbuf: GBuffer, cam, seed, frame: int, accum_rt
 def hybrid_frame(scene, tracer, cam, frame: int, accum_rt, clear_color, *, width: int,
                  height: int, depth: int, use_shadows: bool, use_ao: bool, use_gi: bool,
                  use_denoiser: bool = False, clamp_weights=False, corr: bool = False,
-                 pix=None, seeds=None, perm=None, inv_perm=None, denoise_state=None):
+                 corr_salt=None, pix=None, seeds=None, perm=None, inv_perm=None,
+                 denoise_state=None, tile_axis=None):
     """A hybrid frame: G-buffer pass + RT effects + accumulation
     (main.cpp:506-561). Returns (gbuffer, new_accum, rays, denoise_state').
 
@@ -189,23 +192,34 @@ def hybrid_frame(scene, tracer, cam, frame: int, accum_rt, clear_color, *, width
     engine). ``perm``/``inv_perm``: ``tile_perm``'s pair, set when ``pix``
     is the whole frame in tile order: the denoiser then un-tiles its
     image-space inputs and re-tiles the filtered radiance (reshape copies
-    when ``width % 32 == 0``, row gathers otherwise). The denoiser needs the
-    whole frame, so ``pix`` without ``inv_perm`` cannot take it (the JAX
-    package's row-band form waits for the sharded port).
+    when ``width % 32 == 0``, row gathers otherwise). Otherwise the
+    full-frame denoiser cannot take ``pix``.
     ``denoise_state``: a ``DenoiserState`` selects the temporal
     (reprojecting) denoiser; None the spatial-only filter. Without GI,
-    ``use_denoiser`` is ignored, as in the JAX package."""
+    ``use_denoiser`` is ignored, as in the JAX package.
+    ``tile_axis``: the ``parallel.mesh.RenderMesh`` when ``pix`` is this
+    rank's band of whole scanline rows on the mesh's tile axis (the JAX
+    package's shard_map axis name): the denoiser then runs in its band
+    form (``denoise_temporal_tile``), which is temporal only.
+    ``corr_salt``: see ``hybrid_effects``."""
     device = cam.view_inverse.device
     gbuf = gbuffer_pass(scene, tracer, cam, width, height, clear_color, pix=pix)
     seed = seed_pixels(width, height, frame, device) if seeds is None else seeds
     new_accum, diff_rad_hitd, _, rays = hybrid_effects(
         scene, tracer, gbuf, cam, seed, frame, accum_rt, depth=depth,
         use_shadows=use_shadows, use_ao=use_ao, use_gi=use_gi,
-        clamp_weights=clamp_weights, corr=corr,
+        clamp_weights=clamp_weights, corr=corr, corr_salt=corr_salt,
     )
     rays = rays + float(gbuf.color.shape[0])  # + primary G-buffer rays
     new_state = denoise_state
-    if use_denoiser and use_gi:
+    if use_denoiser and use_gi and tile_axis is not None:
+        if denoise_state is None:
+            raise ValueError("the band denoiser is temporal only: pass a denoise_state")
+        filtered, new_state = dn.denoise_temporal_tile(
+            denoise_state, diff_rad_hitd, gbuf.norm_rough, gbuf.view_z,
+            gbuf.position[:, :3], cam.view_proj, width, height, tile_axis)
+        new_accum = torch.cat([filtered, new_accum[:, 3:4]], dim=-1)
+    elif use_denoiser and use_gi:
         if pix is not None and inv_perm is None:
             raise ValueError("the denoiser needs the whole frame: pass inv_perm with pix")
         structured = width % 32 == 0

@@ -57,14 +57,13 @@ def floor_kernel(o, d, t_lim, threads: int = 256) -> RayHits:
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
     v = torch.empty(n, dtype=torch.float32, device=o.device)
-    err = dev.kernels().vkrt_floor(
+    dev.launch(
+        "vkrt_floor", o.device,
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, threads,
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        dev.stream_ptr(o.device),
     )
-    dev.check("vkrt_floor", err)
     floor_kernel.launches += 1
     return RayHits(t, tri, u, v)
 
@@ -102,9 +101,8 @@ def fma_peak(x: torch.Tensor, k: int) -> torch.Tensor:
     if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"fma_peak: want contiguous f32 on cuda, got {x.dtype} on {x.device}")
     out = torch.empty_like(x)
-    err = dev.kernels().vkrt_fma_peak(x.data_ptr(), out.data_ptr(), x.numel(),
-                                      k // FMA_UNROLL, dev.stream_ptr(x.device))
-    dev.check("vkrt_fma_peak", err)
+    dev.launch("vkrt_fma_peak", x.device, x.data_ptr(), out.data_ptr(), x.numel(),
+               k // FMA_UNROLL)
     fma_peak.launches += 1
     return out
 

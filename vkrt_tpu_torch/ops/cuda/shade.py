@@ -479,7 +479,8 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
         torch.empty((RAY_COLS, n), dtype=torch.float32, device=seed.device),
         torch.empty((RAY_COLS, n), dtype=torch.float32, device=seed.device),
     )
-    err = dev.kernels().vkrt_shade(
+    dev.launch(
+        "vkrt_shade", seed.device,
         carry.data_ptr(), seed.data_ptr(), rays.data_ptr(),
         t_hit.data_ptr(), tri.data_ptr(), hu.data_ptr(), hv.data_ptr(),
         None if p.first else sh_tri.data_ptr(),
@@ -496,9 +497,7 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
         *(float(c) for c in p.clear), p.clamp_lo, p.clamp_hi,
         out.carry.data_ptr(), out.seed.data_ptr(),
         out.next_rays.data_ptr(), out.shadow_rays.data_ptr(),
-        dev.stream_ptr(seed.device),
     )
-    dev.check("vkrt_shade", err)
     shade.launches += 1
     shade.albedo_launches += int(p.albedo)
     return out

@@ -414,15 +414,14 @@ def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
     v = torch.empty(n, dtype=torch.float32, device=o.device)
-    err = dev.kernels().vkrt_trace(
+    dev.launch(
+        "vkrt_trace", o.device,
         bvh.nodes.data_ptr(), bvh.tris.data_ptr(), bvh.depth,
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min), int(any_hit),
         t_out.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        dev.stream_ptr(o.device),
     )
-    dev.check("vkrt_trace", err)
     trace_kernel.launches += 1
     return RayHits(t_out, tri, u, v)
 

@@ -141,7 +141,8 @@ def trace_ablate(mode: str, tables: ProbeTables, scene: SceneTensors, o, d,
     t, tri, u, v = _hit_buffers(n, o.device)
     counts = (torch.empty((2, n), dtype=torch.int32, device=o.device)
               if mode == "count" else None)
-    err = dev.kernels().vkrt_trace_ablate(
+    dev.launch(
+        "vkrt_trace_ablate", o.device,
         ABLATE_MODES[mode],
         bvh.nodes.data_ptr(), bvh.tris.data_ptr(), bvh.depth, tables.cut_depth,
         o.data_ptr(), o.stride(0), o.stride(1),
@@ -149,9 +150,7 @@ def trace_ablate(mode: str, tables: ProbeTables, scene: SceneTensors, o, d,
         t_lim.data_ptr(), n, float(t_min), int(any_hit),
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
         None if counts is None else counts.data_ptr(),
-        dev.stream_ptr(o.device),
     )
-    dev.check("vkrt_trace_ablate", err)
     trace_ablate.launches += 1
     return RayHits(t, tri, u, v), (None if counts is None else BvhCounts(counts[0], counts[1]))
 
@@ -203,7 +202,8 @@ def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
     n = check_rays("trace_variant", o, d, t_lim, tabs)
     t, tri, u, v = _hit_buffers(n, o.device)
     counts = torch.empty((3, n), dtype=torch.int32, device=o.device) if count else None
-    err = dev.kernels().vkrt_trace_variant(
+    dev.launch(
+        "vkrt_trace_variant", o.device,
         VARIANTS[variant], tables.max_depth, wide.stack,
         tabs[0].data_ptr(), tabs[0].shape[0], tabs[1].data_ptr(), tabs[1].shape[0],
         tabs[2].data_ptr(), tabs[2].shape[0], tabs[3].data_ptr(), tabs[4].data_ptr(), k,
@@ -212,9 +212,7 @@ def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
         t_lim.data_ptr(), n, float(t_min),
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
         None if counts is None else counts.data_ptr(),
-        dev.stream_ptr(o.device),
     )
-    dev.check("vkrt_trace_variant", err)
     trace_variant.launches += 1
     hits = RayHits(t, tri, u, v)
     return (hits, WideCounts(*counts)) if count else hits
