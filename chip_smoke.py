@@ -172,6 +172,27 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    non-black, and its displayed mean within 0.02 of the unsharded app's
    spp-2 image; then ``dryrun_multichip(4)`` on gloo CPU ranks;
 
+5k. the ``bvh`` backend (run after phase 6): ``build_lbvh`` on the card
+   for ``make_city(grid=96)`` and the tess-4 sponzoid, each bit-equal (as
+   uint32) to the same function on CPU tensors, ``threaded_tables`` equal
+   to the host packing; printed: the build's ms (CUDA events, median of
+   5 after a warm-up) and of a replay of it captured as one CUDA graph
+   (bit-equal), its device kernels and their device ms, its host
+   syncs (``torch.cuda.set_sync_debug_mode("warn")``, must be 0) and the
+   tree's depth. Then on the city's tiled primaries and incoherent rays
+   (phase 6's sets) kernel E ``threaded`` over the LBVH bit-equal to its
+   plain walk (``trace_rays_bvh`` over the same tables) on 4,096 rays and
+   to kernel A over the SAH tree on every ray; ms of E ``threaded`` over
+   the LBVH, over the SAH tree and of A, the walks' tests a ray and SIMT
+   efficiency. Then the animated sponzoid (phase 4e's poses, 3 frames)
+   through ``Engine`` with ``backend="bvh"`` and ``"pallas"``: the frames
+   equal bit for bit, kernel E 12 launches and A none under ``bvh`` (and
+   the reverse), the repose's re-bake + upload and LBVH rebuild (or
+   refit) ms between device synchronisations. Then ray sorting
+   (``SortingTracer``) in front of kernel A on the city's incoherent rays:
+   hits after unsorting bit-equal to kernel A's; ms of the key, the sort
+   and two gathers, kernel A on the sorted and the unsorted rays, and
+   both SIMT efficiencies (kernel D's counts);
 7. the port's suite (``vkrt_tpu_torch.benchmarks.suite``), rows 1, 2 and 7
    at 1280x720 and 8 frames, one JSON line each (rows 3-5 are phases
    4b-4d, row 8 is 4e).
@@ -187,7 +208,10 @@ denoised fly-through's in ``denoised_launches``, as does ``shade_albedo``;
 and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
 ``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card, and
 ``mesh_launches`` / ``mesh_hybrid_launches`` of ``trace``, ``shade`` and
-``shade_albedo`` the launches of each rank of phases 4f and 5i), the
+``shade_albedo`` the launches of each rank of phases 4f and 5i;
+``trace_variant``'s ``lbvh_launches`` the ``bvh`` backend's launches of
+kernel E ``threaded`` in phase 5k, with ``lbvh_ms``, ``lbvh_bound_ms`` and
+``lbvh_plain_ms`` of the city's tiled primaries over the LBVH), the
 card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -1052,6 +1076,7 @@ def phase_sponzoid(dev, results, card):
         "rows_per_repose": rows, "launches_per_frame": per, "profile": static_prof,
         "animated_profile": anim_prof, "primaries": times}
     log(f"[sponzoid] phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return inst
 
 
 def gate_numbers(a, b):
@@ -2286,6 +2311,304 @@ def check_probes(dev, run, results, shadow_pool) -> None:
         "ray_sets": e_sets}
 
 
+LBVH_BUILDS = 5  # timed builds a scene, after one warm-up
+
+
+def device_kernels(fn):
+    """(device kernels, their summed device ms) of one call of ``fn`` under
+    torch.profiler, memory copies and sets included."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(spans), sum(r.end - r.start for r in spans) * 1e-3
+
+
+def graph_replay(fn, reps: int = LBVH_BUILDS):
+    """``fn`` (which must not synchronise the host) captured once as a CUDA
+    graph: (its output, the median ms of ``reps`` replays by CUDA events).
+    The replay takes the host's launches out of the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the allocator outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return out, float(np.median(times))
+
+
+def host_syncs(fn) -> int:
+    """The host synchronisations one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # the mode's own notice ("a prototype feature ... does not yet detect
+    # all synchronizing operations") is not a synchronisation
+    return sum("called a synchronizing" in str(w.message) for w in seen)
+
+
+def phase_lbvh(dev, results, city, sponzoid, card):
+    """Phase 5k: the ``bvh`` backend, the JAX package's LBVH built on the
+    card (``bvh/lbvh.py``) walked by kernel E's ``threaded`` body; then ray
+    sorting (``ops/sort_rays.py``) in front of kernel A."""
+    import dataclasses
+
+    import torch
+
+    from vkrt_tpu_torch import scene_instances as si
+    from vkrt_tpu_torch.benchmarks.ablate_kernel import visit_stats
+    from vkrt_tpu_torch.benchmarks.micro_trace import make_rays
+    from vkrt_tpu_torch.benchmarks.suite import SPONZOID_CAMERA
+    from vkrt_tpu_torch.bvh.lbvh import build_lbvh
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.ops.cuda.trace import (
+        node_depths, pack_bvh_nodes, pack_tris, threaded_tables, trace_kernel,
+    )
+    from vkrt_tpu_torch.ops.cuda.trace_variants import (
+        LbvhTracer, trace_ablate, trace_threaded, trace_variant,
+    )
+    from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
+    from vkrt_tpu_torch.ops.sort_rays import make_sorting_tracer, ray_sort_keys
+    from vkrt_tpu_torch.ops.trace import BvhCounts, trace_rays_bvh
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    t_phase = time.perf_counter()
+    out = {}
+    # 1. the build on the card against the CPU build, the device tables
+    # against the host packing
+    tables = {}
+    for name, sc in (("city", city.scene), ("sponzoid", sponzoid.scene)):
+        tris = (sc.tri_v0, sc.tri_e1, sc.tri_e2)
+        flat = build_lbvh(*tris)  # warm-up
+        syncs = host_syncs(lambda: threaded_tables(build_lbvh(*tris), *tris))
+        if syncs:
+            raise AssertionError(f"{name}: the LBVH build synchronised the host {syncs} times")
+        if not host_syncs(lambda: tris[0].sum().item()):
+            raise AssertionError("host_syncs does not see a read-back")
+        kernels, device_ms = device_kernels(lambda: build_lbvh(*tris))
+        times = []
+        for _ in range(LBVH_BUILDS):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            build_lbvh(*tris)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        t_ms = cuda_ms(lambda: threaded_tables(flat, *tris), reps=5)
+        replayed, graph_ms = graph_replay(lambda: build_lbvh(*tris))
+        check_equal(f"{name} LBVH, CUDA graph replay vs the build (as uint32)",
+                    [x.view(torch.int32) for x in replayed], [x.view(torch.int32) for x in flat])
+        t0 = time.perf_counter()
+        cpu = build_lbvh(*(t.cpu() for t in tris))
+        cpu_s = time.perf_counter() - t0
+        check_equal(f"{name} LBVH, card vs CPU (as uint32)",
+                    [x.view(torch.int32).cpu() for x in flat],
+                    [x.view(torch.int32) for x in cpu])
+        nodes, tri_rec = threaded_tables(flat, *tris)
+        host = [x.numpy() for x in cpu]
+        want = pack_bvh_nodes(*host)
+        want.view(np.int32)[:, 7] = np.where(host[3] >= 0, np.cumsum(host[3] >= 0) - 1, -1)
+        want_tris = pack_tris(*(t.cpu().numpy() for t in tris), host[3][host[3] >= 0])
+        check_equal(f"{name} threaded_tables vs the host packing",
+                    (nodes.cpu().view(torch.int32), tri_rec.cpu().view(torch.int32)),
+                    (torch.from_numpy(want).view(torch.int32),
+                     torch.from_numpy(want_tris).view(torch.int32)))
+        depth = int(node_depths(host[2].astype(np.int64), host[3]).max())
+        tables[name] = (nodes, tri_rec)
+        out[f"{name}_build"] = {"triangles": int(tris[0].shape[0]),
+                                "build_ms": float(np.median(times)), "build_ms_all": times,
+                                "tables_ms": t_ms, "kernels": kernels,
+                                "kernels_device_ms": device_ms, "graph_replay_ms": graph_ms,
+                                "host_syncs": syncs,
+                                "depth": depth, "cpu_build_s": cpu_s}
+        log(f"[lbvh] {name}: {tris[0].shape[0]} triangles, build {np.median(times):.4f} ms "
+            f"(median of {LBVH_BUILDS} after a warm-up, CUDA events; all "
+            f"{', '.join(f'{x:.4f}' for x in times)}), the build captured as one CUDA graph "
+            f"{graph_ms:.4f} ms a replay (bit-equal), threaded_tables {t_ms:.4f} ms; "
+            f"{kernels} device kernels ({device_ms:.4f} ms of device time) and {syncs} host "
+            f"syncs a build; depth {depth} (the SAH "
+            f"tree's {city.tables.max_depth if name == 'city' else 'not built here'}); "
+            f"bit-equal to the CPU build ({cpu_s:.2f} s) and to the host packing ({card})")
+
+    # 2. the walk: E threaded over the LBVH against its plain walk and
+    # against kernel A over the SAH tree
+    nodes, tri_rec = tables["city"]
+    sc, bvh = city.scene, city.tables.bvh
+    for kind in ("tiled", "incoherent"):
+        o, d = make_rays(sc, W, H, kind, dev)
+        n = o.shape[0]
+        lim = torch.full((n,), T_MAX, device=dev)
+        trace_variant.launches = 0
+        hits = trace_threaded(nodes, tri_rec, o, d, lim)
+        if trace_variant.launches != 1:
+            raise AssertionError("trace_threaded did not launch kernel E")
+        idx = subsample(n, 4096).to(dev)
+        t0 = time.perf_counter()
+        walk, cnt = trace_rays_bvh(nodes, None, o[idx], d[idx], lim[idx], tris=tri_rec,
+                                   count=True)
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check_equal(f"city {kind}: E threaded over the LBVH vs trace_rays_bvh (as uint32)",
+                    [x.view(torch.int32) for x in pick(hits, idx)],
+                    [x.view(torch.int32) for x in walk])
+        _, sah_cnt = trace_rays_bvh(bvh.threaded, sc, o[idx], d[idx], lim[idx], count=True)
+        a_hits = city.tracer.trace(o, d, lim)
+        check_equal(f"city {kind}: E threaded over the LBVH vs kernel A over the SAH tree "
+                    "(as uint32)", [x.view(torch.int32) for x in hits],
+                    [x.view(torch.int32) for x in a_hits])
+        row = {"lbvh_ms": cuda_ms(lambda: trace_threaded(nodes, tri_rec, o, d, lim), reps=4),
+               "sah_threaded_ms": cuda_ms(lambda: trace_variant("threaded", city.tables, sc, o,
+                                                                d, lim), reps=4),
+               "kernel_a_ms": cuda_ms(lambda: city.tracer.trace(o, d, lim), reps=8),
+               "plain_ms": plain_ms, "plain_rays": int(idx.shape[0])}
+        scaled = BvhCounts(*(c.double() * (n / idx.shape[0]) for c in cnt))
+        row["bound_ms"], row["bound_by"] = trace_bound((nodes, tri_rec), n, scaled)
+        for what, c in (("lbvh", cnt), ("sah", sah_cnt)):
+            st = visit_stats(c)
+            row.update({f"{what}_slab_tests": st["nodes"]["mean"],
+                        f"{what}_triangle_tests": st["leaves"]["mean"],
+                        f"{what}_simt_efficiency": st["simt_efficiency"]})
+        out[f"walk_{kind}"] = row
+        log(f"[lbvh] city {kind} ({n} rays, {int((hits.tri >= 0).sum())} hits): E threaded over "
+            f"the LBVH {row['lbvh_ms']:.4f} ms (bound {row['bound_ms']:.4f} ms "
+            f"{row['bound_by']}; {row['lbvh_slab_tests']:.2f} slab + "
+            f"{row['lbvh_triangle_tests']:.2f} triangle tests a ray, SIMT efficiency "
+            f"{row['lbvh_simt_efficiency']:.4f}, on {idx.shape[0]} rays), E threaded over the "
+            f"SAH tree {row['sah_threaded_ms']:.4f} ms ({row['sah_slab_tests']:.2f} + "
+            f"{row['sah_triangle_tests']:.2f}, {row['sah_simt_efficiency']:.4f}), kernel A "
+            f"over the SAH tree {row['kernel_a_ms']:.4f} ms; bit-equal to the plain walk on "
+            f"{idx.shape[0]} rays ({plain_ms:.1f} ms) and to kernel A on every ray ({card})")
+
+    # 3. the scene that moves: the animated sponzoid through Engine with
+    # bvh and with pallas, 3 frames of phase 4e's poses, bit-equal images
+    node = int(np.argmax([e - s for s, e in sponzoid.prim_ranges]))
+    parts = {"repose": [], "repose_tracer": []}
+    real_parts = {k: getattr(si, k) for k in parts}
+
+    def timed_part(name):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real_parts[name](*args, **kw)
+            torch.cuda.synchronize()
+            parts[name].append((time.perf_counter() - t0) * 1e3)
+            return res
+        return call
+
+    images, split, launches = {}, {}, {}
+    settings = path_settings(SPONZOID_DEPTH)
+    for backend in ("bvh", "pallas"):
+        eng = Engine(sponzoid, W, H, dataclasses.replace(settings, backend=backend),
+                     Camera(**SPONZOID_CAMERA), CLEAR)
+        if (backend == "bvh") != isinstance(eng.tracer, LbvhTracer):
+            raise AssertionError(f"backend {backend}: tracer {type(eng.tracer).__name__}")
+        for k in parts:
+            parts[k] = []
+            setattr(si, k, timed_part(k))
+        trace_variant.launches = trace_kernel.launches = 0
+        try:
+            frames = []
+            for f in range(3):
+                eng.set_node_transform(node, translation(0.02 * (f + 1), 0.0, 0.0))
+                frames.append(eng.render_frame().clone())
+            torch.cuda.synchronize()
+        finally:
+            for k, fn in real_parts.items():
+                setattr(si, k, fn)
+        launches[backend] = {"trace_variant": trace_variant.launches,
+                             "trace": trace_kernel.launches}
+        images[backend] = frames
+        split[backend] = {k: float(np.mean(v)) for k, v in parts.items()}
+    per = general_launches(SPONZOID_DEPTH)["trace"] * 3
+    if launches["bvh"] != {"trace_variant": per, "trace": 0} or \
+            launches["pallas"] != {"trace_variant": 0, "trace": per}:
+        raise AssertionError(f"launches over 3 frames {launches}, want {per} of E (bvh) and "
+                             f"of A (pallas)")
+    results["trace_variant"]["lbvh_launches"] = launches["bvh"]["trace_variant"]
+    for f, (a, b) in enumerate(zip(images["bvh"], images["pallas"])):
+        check_equal(f"sponzoid animated frame {f}, bvh vs pallas", (a,), (b,))
+    refit = results.get("sponzoid", {}).get("repose_parts_ms", {})
+    log(f"[lbvh] sponzoid animated, 3 frames, {W}x{H} path depth {SPONZOID_DEPTH}: bvh's "
+        f"images equal pallas' bit for bit; launches {launches}; the repose a frame (host clock "
+        f"between device synchronisations, mean of 3): bvh re-bake + upload "
+        f"{split['bvh']['repose']:.3f} ms, LBVH rebuild {split['bvh']['repose_tracer']:.3f} ms; "
+        f"pallas re-bake + upload {split['pallas']['repose']:.3f} ms, refit "
+        f"{split['pallas']['repose_tracer']:.3f} ms; phase 4e's (no synchronisation): re-bake "
+        f"+ splice {refit.get('repose', float('nan')):.3f} ms, refit "
+        f"{refit.get('repose_tracer', float('nan')):.3f} ms ({card})")
+    out["sponzoid_repose_ms"] = split
+    out["sponzoid_launches"] = launches
+
+    # 4. ray sorting in front of kernel A on the city's incoherent rays
+    o, d = make_rays(sc, W, H, "incoherent", dev)
+    n = o.shape[0]
+    lim = torch.full((n,), T_MAX, device=dev)
+    st = make_sorting_tracer(city.tracer, sc)
+    check_equal("city incoherent: sorted kernel A, unsorted, vs kernel A (as uint32)",
+                [x.view(torch.int32) if x.dtype != torch.bool else x
+                 for x in st.closest(o, d, T_MIN, T_MAX)],
+                [x.view(torch.int32) if x.dtype != torch.bool else x
+                 for x in city.tracer.closest(o, d, T_MIN, T_MAX)])
+    keys = ray_sort_keys(o, d, st.lo, st.hi)
+    perm = torch.sort(keys, stable=True).indices
+    so, sd = o[perm], d[perm]
+
+    def sort_and_gather():
+        p = torch.sort(keys, stable=True).indices
+        return o[p], d[p]
+
+    srt = {"key_ms": cuda_ms(lambda: ray_sort_keys(o, d, st.lo, st.hi), reps=8),
+           "sort_gather_ms": cuda_ms(sort_and_gather, reps=8),
+           "kernel_a_sorted_ms": cuda_ms(lambda: city.tracer.trace(so, sd, lim), reps=8),
+           "kernel_a_ms": cuda_ms(lambda: city.tracer.trace(o, d, lim), reps=8)}
+    for what, (ro, rd) in (("unsorted", (o, d)), ("sorted", (so, sd))):
+        _, cnt = trace_ablate("count", city.tables, sc, ro, rd, lim)
+        stt = visit_stats(cnt)
+        srt[f"{what}_simt_efficiency"] = stt["simt_efficiency"]
+        srt[f"{what}_slab_tests"] = stt["nodes"]["mean"]
+    out["sort"] = srt
+    log(f"[lbvh] city incoherent, {n} rays: sorted kernel A's hits, unsorted, bit-equal to "
+        f"kernel A's; key {srt['key_ms']:.4f} ms, sort + two gathers "
+        f"{srt['sort_gather_ms']:.4f} ms, kernel A on the sorted rays "
+        f"{srt['kernel_a_sorted_ms']:.4f} ms against {srt['kernel_a_ms']:.4f} ms unsorted; "
+        f"SIMT efficiency {srt['sorted_simt_efficiency']:.4f} sorted, "
+        f"{srt['unsorted_simt_efficiency']:.4f} unsorted ({srt['sorted_slab_tests']:.2f} / "
+        f"{srt['unsorted_slab_tests']:.2f} slab tests a ray; kernel D's counts) ({card})")
+    tiled = out["walk_tiled"]
+    results["trace_variant"].update({
+        "lbvh_ms": tiled["lbvh_ms"], "lbvh_bound_ms": tiled["bound_ms"],
+        "lbvh_bound_by": tiled["bound_by"], "lbvh_plain_ms": tiled["plain_ms"]})
+    results["lbvh"] = out
+    log(f"[lbvh] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def ray_set_report(name, b, o, d, a_run, any_hit: bool) -> dict:
     """Kernel A on one ray set (``a_run``: micro_trace's time, hits and
     limits) beside kernel E's ``threaded`` on the same rays: both times,
@@ -2390,7 +2713,8 @@ def main() -> int:
                                                                                city.scene)),
                         ("4d denoised main path",
                          lambda: phase_denoised_main_path(dev, results, city.scene, card)),
-                        ("4e sponzoid main path", lambda: phase_sponzoid(dev, results, card)),
+                        ("4e sponzoid main path",
+                         lambda: pools.update(sponzoid=phase_sponzoid(dev, results, card))),
                         ("4f mesh main path", lambda: phase_mesh_main_path(dev, results, card)),
                         ("5 end to end", lambda: phase_end_to_end(dev)),
                         ("5b city end to end", lambda: phase_city_end_to_end(dev)),
@@ -2406,6 +2730,8 @@ def main() -> int:
                         ("5j mesh app", lambda: phase_mesh_app(dev)),
                         ("6 probes", lambda: phase_probes(dev, results, pools["shadow"],
                                                           city)),
+                        ("5k lbvh", lambda: phase_lbvh(dev, results, city, pools["sponzoid"],
+                                                       card)),
                         ("7 suite", lambda: phase_suite(dev, results))):
         t0 = time.perf_counter()
         phase()

@@ -8,7 +8,9 @@ kernel A's refit (``ops/cuda/trace.py::refit_bvh``) against
   ``v1 - v0`` in f64 from the f32 ``v0``, a build subtracts two f32
   arrays); the brute-force tracer sees the move; the walk over refit
   tables is bit-equal (t, tri, u, v as uint32) to brute force and to the
-  walk over a fresh build; the rows a refit rewrites are those of the
+  walk over a fresh build (the ``bvh`` backend re-posed rebuilds its
+  LBVH: ``build_lbvh`` of the re-posed scene bit for bit, hits bit-equal
+  to brute force); the rows a refit rewrites are those of the
   moved triangles and their ancestors, the rest stay bit for bit;
   ``Engine.set_node_transform`` changes the image only where the node
   moved; a re-pose runs no native SAH build;
@@ -35,10 +37,12 @@ from vkrt_tpu.ops.rng import tea as j_tea
 from vkrt_tpu.ops.trace import make_tracer as j_make_tracer
 from vkrt_tpu.utils import gltf as jgltf
 from vkrt_tpu.utils.camera import Camera as JCamera, pixel_coords as j_pixel_coords, tile_perm
+from vkrt_tpu_torch.bvh.lbvh import build_lbvh
 from vkrt_tpu_torch.config import RenderSettings
 from vkrt_tpu_torch.engine import Engine
 from vkrt_tpu_torch.ops.alpha import AlphaTracer
 from vkrt_tpu_torch.ops.cuda import trace as ktrace
+from vkrt_tpu_torch.ops.cuda.trace_variants import LbvhTracer
 from vkrt_tpu_torch.ops.trace import (
     Tracer, make_tracer, trace_rays_bruteforce, trace_rays_bvh_ordered,
 )
@@ -164,24 +168,41 @@ def test_repose_oracle_tracer_sees_move():
 
 @pytest.mark.parametrize("backend", ["pallas", "bvh"])
 def test_refit_walk_bit_equal_to_brute_force_and_fresh_build(backend):
-    """Kernel A's tracer (its plain version here) and the ``bvh`` backend
-    re-posed: the front-to-back walk over the refit tables is bit-equal to
-    brute force and to the walk over a fresh build, on the probe rays and
-    on random rays from inside the scene."""
+    """Kernel A's tracer (its plain version here) re-posed: the
+    front-to-back walk over the refit tables is bit-equal to brute force
+    and to the walk over a fresh build, on the probe rays and on random
+    rays from inside the scene. The ``bvh`` backend re-posed rebuilds its
+    LBVH: the tree is ``build_lbvh`` of the re-posed scene bit for bit, its
+    tables are ``threaded_tables`` of that tree, and its hits are brute
+    force's bit for bit."""
     inst = build_instanced(_doc(), device="cpu")
     tr = make_tracer(inst.scene, backend, tri_arrays=inst.tri_arrays())
     for prim, m in ((0, _translate(-3, -1, -4)), (1, _translate(2, 1.5, 1))):
         inst, moved = repose(inst, prim, m)
         tr = repose_tracer(tr, inst, moved)
-    assert isinstance(tr, ktrace.BvhTracer if backend == "bvh" else ktrace.CudaTracer)
     sc = inst.scene
-    fresh = ktrace.build_bvh(sc)
+    assert tr.scene is sc
+    if backend == "bvh":
+        assert isinstance(tr, LbvhTracer)
+        want = build_lbvh(sc.tri_v0, sc.tri_e1, sc.tri_e2)
+        tables = ktrace.threaded_tables(want, sc.tri_v0, sc.tri_e1, sc.tri_e2)
+        for got, ref in zip((*tr.flat, tr.nodes, tr.tris), (*want, *tables)):
+            np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                          ref.numpy().view(np.uint32))
+    else:
+        assert isinstance(tr, ktrace.CudaTracer)
+        fresh = ktrace.build_bvh(sc)
     for o, d in (_probe_rays(128), _random_rays(512, 1, -6.0, 6.0)):
         lim = torch.full((o.shape[0],), 100.0)
-        walk = trace_rays_bvh_ordered(tr.bvh, o, d, lim)
-        _assert_bits(walk, trace_rays_bruteforce(sc.tri_v0, sc.tri_e1, sc.tri_e2, o, d, lim))
-        _assert_bits(walk, trace_rays_bvh_ordered(fresh, o, d, lim))
-        _assert_bits(tr.trace(o, d, lim), walk)
+        brute = trace_rays_bruteforce(sc.tri_v0, sc.tri_e1, sc.tri_e2, o, d, lim)
+        if backend == "bvh":
+            walk = tr.trace(o, d, lim)
+            _assert_bits(walk, brute)
+        else:
+            walk = trace_rays_bvh_ordered(tr.bvh, o, d, lim)
+            _assert_bits(walk, brute)
+            _assert_bits(walk, trace_rays_bvh_ordered(fresh, o, d, lim))
+            _assert_bits(tr.trace(o, d, lim), walk)
         assert int((walk.tri >= 0).sum()) > 0
 
 

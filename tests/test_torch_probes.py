@@ -38,7 +38,6 @@ from jax.experimental import pallas as pl
 import vkrt_tpu.config as jconfig
 import vkrt_tpu.scene as jscene
 import vkrt_tpu.utils.gltf as jgltf
-import vkrt_tpu.utils.native as jnative
 import vkrt_tpu.utils.png as jpng
 import vkrt_tpu_torch.config as tconfig
 import vkrt_tpu_torch.scene as tscene
@@ -194,25 +193,40 @@ def _build_sah(lib_path, tris):
     return [a[:m] for a in out]
 
 
+# native/Makefile's compile and link flags (less -Wall, which only warns)
+JAX_NATIVE_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+
+
+def _compile(lib, source):
+    """``source`` built with ``JAX_NATIVE_FLAGS`` into the library ``lib``."""
+    subprocess.run(["c++", *JAX_NATIVE_FLAGS, "-o", str(lib), str(source)], check=True,
+                   timeout=120)
+    return lib
+
+
 @pytest.mark.parametrize("kind", ["soup", "city"])
 def test_native_builder_copy_matches(tmp_path, kind):
     """The port's builder (its own source and build, portable flags) gives
     the JAX package's arrays on the soup. On the city the JAX library,
     built with -march=native, contracts the SAH cost into FMAs and so flips
     a few near-tie splits: there the port's source built with the JAX
-    Makefile's flags gives the JAX arrays exactly (the same builder)."""
+    Makefile's flags gives the JAX arrays exactly (the same builder).
+
+    The JAX package's arrays come from its own source
+    (``native/bvh_builder.cpp``) built with its Makefile's flags into this
+    test's directory, not through ``vkrt_tpu/utils/native.py``: that loader
+    builds one shared library in place for every process that finds it
+    missing, and a process that opens it half written keeps ``None``."""
     js = jscene.make_random_soup(2048, 3) if kind == "soup" else jscene.make_city(grid=4)
     tris = [np.ascontiguousarray(np.asarray(getattr(js, k)), np.float32)
             for k in ("tri_v0", "tri_e1", "tri_e2")]
-    want = jnative.build_sah_bvh(*tris)
+    want = _build_sah(_compile(tmp_path / "libjax_native.so",
+                               os.path.join(REPO, "native", "bvh_builder.cpp")), tris)
     got = tnative.build_sah_bvh(*tris)
     assert str(tnative.LIB_PATH).startswith(os.path.join(REPO, "vkrt_tpu_torch", "build"))
     if kind == "city":
-        lib = tmp_path / "libnative_march.so"
-        subprocess.run(["c++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
-                        "-o", str(lib), str(tnative.SOURCE)], check=True, timeout=120)
         got_tree = got
-        got = _build_sah(lib, tris)
+        got = _build_sah(_compile(tmp_path / "libnative_march.so", tnative.SOURCE), tris)
         # the portable build: a valid threaded tree over the same triangles
         skip, tri = got_tree[2], got_tree[3]
         assert sorted(tri[tri >= 0]) == sorted(want[3][want[3] >= 0])

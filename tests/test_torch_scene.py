@@ -170,5 +170,6 @@ def test_port_imports_no_jax():
                  "models.shading", "ops.nrd", "models.gbuffer", "models.hybrid",
                  "models.post", "models.denoiser", "ops.alpha", "utils.metrics",
                  "scene_instances", "utils.sponzoid", "utils.profiling", "utils.checkpoint",
-                 "benchmarks.suite", "parallel.mesh", "parallel.render", "parallel.dryrun"):
+                 "benchmarks.suite", "parallel.mesh", "parallel.render", "parallel.dryrun",
+                 "bvh.lbvh", "ops.sort_rays"):
         assert f"vkrt_tpu_torch.{name}" in names, name

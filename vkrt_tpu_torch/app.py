@@ -101,8 +101,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--clear-color", type=float, nargs=3, default=None)
     p.add_argument("--backend", choices=list(BACKENDS), default="auto",
                    help="trace backend: auto (kernel A on the card, brute force "
-                        "on the CPU), bruteforce, bvh (kernel A's walk in plain "
-                        "torch), pallas (kernel A's tracer)")
+                        "on the CPU), bruteforce, bvh (the LBVH built on the "
+                        "device, walked by kernel E's stackless body), pallas "
+                        "(kernel A's tracer)")
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--lookat", type=float, nargs=3, default=None)
     p.add_argument("--fov", type=float, default=60.0)

@@ -56,7 +56,7 @@ class RenderSettings:
     use_denoiser: bool = False        # finishes the reference's disabled NRD path
     temporal_denoiser: bool = True    # reprojecting REBLUR-style history (vs
                                       # spatial-only à-trous) when denoising
-    backend: str = "auto"             # trace backend: auto|bruteforce|bvh|pallas
+    backend: str = "auto"             # trace backend: auto|bruteforce|bvh (LBVH)|pallas
     # Extension (default off = reference-faithful): clamp path throughput
     # weights to [0, 50]. The reference's GGX importance weight
     # (gltf.glsl:98-109; BRDF*cos/pdf with pdf -> 0 as N.H -> 0 and

@@ -22,7 +22,9 @@ G-buffer, the denoiser's history and the frame counter, and exposes
   frame is not re-rendered (hello_vulkan.cpp:1426-1430); hybrid mode
   renders once first when it has no G-buffer to show;
 * ``set_node_transform`` (an engine built from an ``InstancedScene``)
-  re-poses one node, refits the tracer and resets the frame; the
+  re-poses one node, rebinds the tracer (kernel A's refits its tables,
+  the ``bvh`` backend rebuilds its LBVH on the device) and resets the
+  frame; the
   denoiser's history stays, as a camera move keeps it.
 
 A frame runs under a ``pass_label`` ("pathtrace" or "hybrid"), a named
@@ -153,8 +155,10 @@ class Engine:
     def set_node_transform(self, prim_idx: int, world_matrix):
         """Re-pose one scene node (the reference's instance-transform
         update, createTopLevelAsGltf hello_vulkan.cpp:1031-1047): re-bake
-        the primitive into the scene tensors and refit the tracer (the cost
-        scales with the moved subset; no SAH build). Resets the frame; the
+        the primitive into the scene tensors and rebind the tracer
+        (``scene_instances.repose_tracer``: kernel A's tables are refit, the
+        cost scaling with the moved subset and no SAH build; the ``bvh``
+        backend's LBVH is rebuilt on the device). Resets the frame; the
         denoiser's history stays. Needs an engine built from an
         ``InstancedScene``."""
         if self.instances is None:

@@ -20,6 +20,11 @@ Scenes that move (``scene_instances``) keep the tree and refit its boxes
 (``refit_bvh``, the counterpart of the TPU package's cluster refit): the
 math runs on the tree's host mirror (``BvhHost``, kept by ``build_bvh``)
 and only the dirty rows of the three tables are written on the device.
+
+``threaded_tables`` makes kernel E's threaded table and triangle records
+of a tree held as tensors (the LBVH of ``bvh/lbvh.py``, the ``bvh``
+backend's) on the tree's device, as ``pack_bvh_nodes`` and ``pack_tris``
+make them on the host.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.ops.intersect import T_MIN
 from vkrt_tpu_torch.ops.trace import (
-    WALK_STACK, Bvh, RayHits, Tracer, trace_rays_bruteforce, trace_rays_bvh_ordered,
+    WALK_STACK, Bvh, RayHits, Tracer, trace_rays_bruteforce,
 )
 from vkrt_tpu_torch.scene import SceneTensors
 from vkrt_tpu_torch.utils import native
@@ -200,6 +205,34 @@ def pack_tris(v0, e1, e2, leaf_tri) -> np.ndarray:
     rec[:, 0:3], rec[:, 4:7], rec[:, 8:11] = v0[leaf_tri], e1[leaf_tri], e2[leaf_tri]
     rec[:, 3] = leaf_tri.view(np.float32)
     return rec
+
+
+def threaded_tables(flat, v0, e1, e2):
+    """What kernel E's ``threaded`` body reads of a threaded tree, made on
+    the tree's device without a copy to the host: ``flat`` holds the four
+    arrays ``(node_min, node_max, node_skip, node_tri)`` as tensors (a
+    ``bvh/lbvh.py::FlatBVH``), ``v0``, ``e1``, ``e2`` the scene's (T,3)
+    triangles. Returns ``(nodes, tris)``: ``pack_bvh_nodes``' (M, 8) table
+    with each leaf's slot in ``tris`` in place of its triangle id (as
+    ``trace_variants.probe_tables`` fills it on the host), and
+    ``pack_tris``' (L, 12) records in leaf (preorder) order, both equal to
+    the host functions' output bit for bit. Every inner node has two
+    children, so the tree has L = (M + 1) / 2 leaves."""
+    node_min, node_max, node_skip, node_tri = flat
+    m = node_tri.shape[0]
+    is_leaf = node_tri >= 0
+    nodes = torch.empty((m, 8), dtype=torch.float32, device=node_tri.device)
+    bits = nodes.view(torch.int32)
+    nodes[:, 0:3], nodes[:, 4:7] = node_min, node_max
+    bits[:, 3] = node_skip
+    bits[:, 7] = torch.where(is_leaf, torch.cumsum(is_leaf, 0) - 1, -1).to(torch.int32)
+    # the leaves in preorder: a stable sort puts them first, in their order
+    leaf = torch.sort((~is_leaf).to(torch.uint8), stable=True).indices[:(m + 1) // 2]
+    leaf_tri = node_tri[leaf].long()
+    tris = torch.zeros((leaf.shape[0], 12), dtype=torch.float32, device=node_tri.device)
+    tris[:, 0:3], tris[:, 4:7], tris[:, 8:11] = v0[leaf_tri], e1[leaf_tri], e2[leaf_tri]
+    tris.view(torch.int32)[:, 3] = leaf_tri.to(torch.int32)
+    return nodes, tris
 
 
 def _tri_arrays(scene: SceneTensors):
@@ -447,20 +480,6 @@ class CudaTracer(Tracer):
                                    bvh=refit_bvh(self.bvh, *tri_arrays, moved))
 
 
-@dataclasses.dataclass(frozen=True)
-class BvhTracer(CudaTracer):
-    """The ``bvh`` backend: kernel A's walk in plain torch
-    (``trace_rays_bvh_ordered``) over ``build_bvh``'s tables, on either
-    device; refit as kernel A's tracer is."""
-
-    def trace(self, o, d, t_lim, t_min: float = T_MIN,
-              any_hit: bool = False) -> RayHits:
-        return trace_rays_bvh_ordered(self.bvh, o, d, t_lim, t_min, any_hit)
-
-
 def make_cuda_tracer(scene: SceneTensors, tri_arrays=None) -> CudaTracer:
     return CudaTracer(scene=scene, bvh=build_bvh(scene, tri_arrays))
 
-
-def make_bvh_tracer(scene: SceneTensors, tri_arrays=None) -> BvhTracer:
-    return BvhTracer(scene=scene, bvh=build_bvh(scene, tri_arrays))

@@ -23,6 +23,13 @@ structures (``csrc/trace_variants.cu``).
   bit-equal to brute force (over the first K triangles for ``mt<K>``),
   the plain version of all but ``ordered``, whose own is bit-equal to it.
 
+``trace_threaded`` launches ``threaded`` alone over a tree's threaded
+table and triangle records (``ops/cuda/trace.py::threaded_tables``), with
+no ``ProbeTables``: it is what ``LbvhTracer``, the ``bvh`` backend, runs
+over the LBVH built on the device (``bvh/lbvh.py``). Its launches count in
+``trace_variant.launches``; its plain version is ``trace_rays_bvh`` over
+the same tables.
+
 The TPU variants ``dynK`` and ``bitK`` measured the cost of Mosaic's loop
 iterations and have no counterpart here.
 
@@ -42,19 +49,21 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 
 from vkrt_tpu_torch import device as dev
+from vkrt_tpu_torch.bvh.lbvh import FlatBVH, build_lbvh
 from vkrt_tpu_torch.ops.cuda.probes import miss_record
 from vkrt_tpu_torch.ops.cuda.trace import (
-    check_bvh, check_rays, node_depths, pack_bvh4_nodes, pack_tris,
+    check_bvh, check_rays, node_depths, pack_bvh4_nodes, pack_tris, threaded_tables,
 )
 from vkrt_tpu_torch.ops.intersect import T_MIN
 from vkrt_tpu_torch.ops.trace import (
-    WIDE_STACK, Bvh, BvhCounts, RayHits, WideBvh, WideCounts, trace_rays_bruteforce,
-    trace_rays_bvh_ordered, trace_rays_bvh_wide,
+    WIDE_STACK, Bvh, BvhCounts, RayHits, Tracer, WideBvh, WideCounts, trace_rays_bruteforce,
+    trace_rays_bvh, trace_rays_bvh_ordered, trace_rays_bvh_wide,
 )
 from vkrt_tpu_torch.scene import SceneTensors
 
@@ -158,6 +167,14 @@ def trace_ablate(mode: str, tables: ProbeTables, scene: SceneTensors, o, d,
 trace_ablate.launches = 0
 
 
+def _check_tables(tables):
+    """(name, tensor, width) triples: each an f32 (n >= 1, width) table."""
+    for what, t, width in tables:
+        if t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] != width or t.shape[0] < 1:
+            raise ValueError(f"{what}: want f32 (n >= 1, {width}), got {t.dtype} "
+                             f"{tuple(t.shape)}")
+
+
 def parse_variant(name: str):
     """'ordered' | 'binary' | 'threaded' | 'flat' | 'mt<K>' -> (variant, K)."""
     if name.startswith("mt") and name[2:].isdigit() and int(name[2:]) > 0:
@@ -194,11 +211,8 @@ def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
         return trace_rays_bruteforce(scene.tri_v0[tris], scene.tri_e1[tris],
                                      scene.tri_e2[tris], o, d, t_lim, t_min)
     tabs = (tables.threaded, wide.nodes, tables.cut_boxes, wide.tris, tables.scene_tris)
-    for what, t, width in zip(("threaded", "wide", "cut_boxes", "tris", "scene_tris"),
-                              tabs, (8, 32, 8, 12, 12)):
-        if t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] != width or t.shape[0] < 1:
-            raise ValueError(f"{what}: want f32 (n >= 1, {width}), got {t.dtype} "
-                             f"{tuple(t.shape)}")
+    _check_tables(zip(("threaded", "wide", "cut_boxes", "tris", "scene_tris"), tabs,
+                      (8, 32, 8, 12, 12)))
     n = check_rays("trace_variant", o, d, t_lim, tabs)
     t, tri, u, v = _hit_buffers(n, o.device)
     counts = torch.empty((3, n), dtype=torch.int32, device=o.device) if count else None
@@ -219,3 +233,60 @@ def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
 
 
 trace_variant.launches = 0
+
+
+def trace_threaded(nodes, tris, o, d, t_lim, t_min: float = T_MIN,
+                   any_hit: bool = False) -> RayHits:
+    """Kernel E's ``threaded`` body over ``nodes``, a threaded (M, 8) table
+    with leaf slots, and ``tris``, its (L, 12) triangle records: kernel A's
+    contract (``ops/trace.py``), ties to the lower triangle id. A
+    first-hit-kills lane (t_lim < 0, every lane with ``any_hit``) ends at
+    its first hit. The walk is stackless, so any depth is taken. On CPU
+    tensors it runs the plain version, ``trace_rays_bvh`` over the same
+    tables; on CUDA tensors it launches the kernel or raises."""
+    if any_hit:
+        t_lim = -t_lim.abs()
+    if o.device.type == "cpu":
+        return trace_rays_bvh(nodes, None, o, d, t_lim, t_min, tris=tris)
+    _check_tables((("nodes", nodes, 8), ("tris", tris, 12)))
+    n = check_rays("trace_threaded", o, d, t_lim, (nodes, tris))
+    t, tri, u, v = _hit_buffers(n, o.device)
+    # threaded reads nodes and tris alone: the other tables' pointers are
+    # never dereferenced
+    dev.launch(
+        "vkrt_trace_variant", o.device,
+        VARIANTS["threaded"], 0, 0,
+        nodes.data_ptr(), nodes.shape[0], nodes.data_ptr(), 0, nodes.data_ptr(), 0,
+        tris.data_ptr(), tris.data_ptr(), 0,
+        o.data_ptr(), o.stride(0), o.stride(1),
+        d.data_ptr(), d.stride(0), d.stride(1),
+        t_lim.data_ptr(), n, float(t_min),
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), None,
+    )
+    trace_variant.launches += 1
+    return RayHits(t, tri, u, v)
+
+
+@dataclasses.dataclass(frozen=True)
+class LbvhTracer(Tracer):
+    """The ``bvh`` backend, the JAX package's: the LBVH of the scene's
+    triangles built on their device (``build_lbvh``), walked by kernel E's
+    ``threaded`` body (``trace_threaded``; on a CPU scene its plain
+    version). A re-posed scene gets a new one (``make_lbvh_tracer``), not a
+    refit."""
+
+    flat: Optional[FlatBVH] = None  # the LBVH
+    nodes: Optional[torch.Tensor] = None  # (M, 8) threaded table, leaf slots
+    tris: Optional[torch.Tensor] = None   # (L, 12) triangle records, leaf order
+
+    def trace(self, o, d, t_lim, t_min: float = T_MIN,
+              any_hit: bool = False) -> RayHits:
+        return trace_threaded(self.nodes, self.tris, o, d, t_lim, t_min, any_hit)
+
+
+def make_lbvh_tracer(scene: SceneTensors) -> LbvhTracer:
+    """The LBVH tracer of ``scene``, built on the scene's device."""
+    s = scene
+    flat = build_lbvh(s.tri_v0, s.tri_e1, s.tri_e2)
+    nodes, tris = threaded_tables(flat, s.tri_v0, s.tri_e1, s.tri_e2)
+    return LbvhTracer(scene=scene, flat=flat, nodes=nodes, tris=tris)

@@ -1,17 +1,20 @@
 """Trace backends: closest-hit and any-hit queries over ray batches.
 
-Port of ``vkrt_tpu/ops/trace.py``. Two tracers share one API:
+Port of ``vkrt_tpu/ops/trace.py``. Three tracers share one API:
 
 * ``Tracer`` — brute force over all triangles, in ray chunks and triangle
   blocks. It is the correctness oracle and the plain version of the CUDA
   trace kernel, and the tracer ``make_tracer`` gives a scene on the CPU.
 * ``CudaTracer`` (``ops/cuda/trace.py``) — the CUDA trace kernel over the
   SAH BVH's child-box records (``Bvh``), for a scene on a CUDA device.
+* ``LbvhTracer`` (``ops/cuda/trace_variants.py``) — the ``bvh`` backend:
+  kernel E's stackless walk over the LBVH built on the device.
 
 ``trace_rays_bvh_ordered`` is that kernel's front-to-back walk in plain
 torch, the plain version of the trace probes' visit counts
 (``ops/cuda/trace_variants.py``); ``trace_rays_bvh`` is the stackless walk
-over the threaded table, which kernel E's ``threaded`` variant keeps.
+over the threaded table, which kernel E's ``threaded`` variant keeps and
+the ``bvh`` backend (``LbvhTracer``) runs over the LBVH.
 
 Both implement ``trace`` with the trace kernel's contract (the Pallas
 kernel's, ``vkrt_tpu/ops/pallas/trace.py``): per-lane limit ``t_lim``, a
@@ -180,18 +183,30 @@ def unpack_nodes(nodes: torch.Tensor):
 
 def trace_rays_bvh(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
                    t_min: float = T_MIN, any_hit: bool = False,
-                   count: bool = False):
+                   count: bool = False, tris: torch.Tensor = None):
     """The stackless walk over the threaded table (kernel E's ``threaded``)
     in plain torch, vectorised over rays: the counterpart of
     ``vkrt_tpu/ops/trace.py::trace_closest_bvh`` / ``trace_any_bvh`` with
     kernel A's contract (per-lane ``t_lim``, first-hit-kills lanes, the
-    miss record) and its widened slab test; an equal-t tie goes to the
-    triangle met first. With ``count=True`` it counts the slab and
-    triangle tests that walk makes. One current node
-    per ray; each step advances every live ray by one node (box hit at an
-    inner node -> node + 1, otherwise the skip link) until all are done.
-    Returns ``RayHits``, or ``(RayHits, BvhCounts)`` with ``count``."""
+    miss record), its widened slab test and its tie rule: a hit at an equal
+    t goes to the lower triangle id, so the closest hits are brute force's
+    bit for bit (the JAX walk keeps the triangle met first). A leaf's
+    column 7 is its scene triangle id, or with ``tris`` (the (L, 12)
+    triangle records of ``ops/cuda/trace.py::pack_tris``) its slot in
+    them, which is kernel E's table: then ``scene`` is not read. With
+    ``count=True`` it counts the slab and triangle tests that walk makes.
+    One current node per ray; each step advances every live ray by one
+    node (box hit at an inner node -> node + 1, otherwise the skip link)
+    until all are done. Returns ``RayHits``, or ``(RayHits, BvhCounts)``
+    with ``count``."""
     lo, hi, skip, tri_of = unpack_nodes(nodes)
+    if tris is None:
+        v0, e1, e2 = scene.tri_v0, scene.tri_e1, scene.tri_e2
+        tri_id = torch.arange(v0.shape[0], dtype=torch.int32, device=o.device)
+    else:
+        rec = tris.view(-1, 3, 4)
+        v0, e1, e2 = rec[:, 0, :3], rec[:, 1, :3], rec[:, 2, :3]
+        tri_id = tris.view(torch.int32)[:, 3]
     n_nodes = nodes.shape[0]
     n = o.shape[0]
     dev = o.device
@@ -219,13 +234,14 @@ def trace_rays_bvh(nodes: torch.Tensor, scene: SceneTensors, o, d, t_lim,
         visits[ray] += 1
         stop = torch.zeros_like(box)
         if bool(leaf.any()):
-            r, t = ray[leaf], tri[leaf]
+            r, k = ray[leaf], tri[leaf]
             leaves[r] += 1
-            hit, th, uh, vh = _mt_pairs(o[r], d[r], scene.tri_v0[t], scene.tri_e1[t],
-                                        scene.tri_e2[t], t_min_t, best[r])
-            r, t = r[hit], t[hit]
+            hit, th, uh, vh = _mt_pairs(o[r], d[r], v0[k], e1[k], e2[k], t_min_t, None)
+            tid = tri_id[k]
+            hit &= (th < best[r]) | ((th == best[r]) & (tid < btri[r]))
+            r, tid = r[hit], tid[hit]
             best[r] = th[hit]
-            btri[r] = t.to(torch.int32)
+            btri[r] = tid
             bu[r] = uh[hit]
             bv[r] = vh[hit]
             stop[leaf.nonzero()[:, 0][hit]] = kill[r]
@@ -534,28 +550,36 @@ def make_tracer(scene: SceneTensors, backend: str = "auto", alpha: bool = False,
                 tri_arrays=None):
     """The tracer of ``backend`` (the JAX package's names) for a scene:
 
-    * ``auto``: kernel A's tracer on a CUDA device, brute force on the CPU;
+    * ``auto``: kernel A's tracer on a CUDA device, brute force on the CPU
+      (the JAX package takes its LBVH on a CPU scene of more than 4096
+      triangles, for the CPU's speed alone: both give exact closest hits);
     * ``bruteforce``: ``Tracer`` (``trace_rays_bruteforce``) on either device;
-    * ``bvh``: kernel A's walk in plain torch (``trace_rays_bvh_ordered``)
-      over ``build_bvh``'s tables on either device (the JAX package walks an
-      LBVH here; both give exact closest hits);
+    * ``bvh``: the JAX package's LBVH, built on the scene's device
+      (``bvh/lbvh.py``; no SAH build, nothing read back to the host) and
+      walked by kernel E's stackless ``threaded`` body
+      (``ops/cuda/trace_variants.py::LbvhTracer``); on a CPU scene its plain
+      version, ``trace_rays_bvh``;
     * ``pallas``: kernel A's tracer (``CudaTracer``); on a CPU scene its
       wrapper runs the plain version, as every wrapper does.
 
+    Every backend gives brute force's closest hits bit for bit.
     ``alpha``: wrap it in the alpha tracer (``ops/alpha.py``) when the
     scene has a MASK or BLEND material (opt-in, as in the JAX package: the
     reference ships its any-hit shaders unwired). ``tri_arrays``: the
-    scene's (v0, e1, e2) on the host for a BVH build, when the caller has
-    them (an ``InstancedScene``'s mirrors)."""
+    scene's (v0, e1, e2) on the host for kernel A's SAH build, when the
+    caller has them (an ``InstancedScene``'s mirrors)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown trace backend {backend!r} (one of {BACKENDS})")
     if scene.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no tracer for device {scene.device}")
     if backend == "bruteforce" or (backend == "auto" and scene.device.type == "cpu"):
         inner = Tracer(scene)
-    else:
-        from vkrt_tpu_torch.ops.cuda.trace import make_bvh_tracer, make_cuda_tracer
+    elif backend == "bvh":
+        from vkrt_tpu_torch.ops.cuda.trace_variants import make_lbvh_tracer
 
-        make = make_bvh_tracer if backend == "bvh" else make_cuda_tracer
-        inner = make(scene, tri_arrays)
+        inner = make_lbvh_tracer(scene)
+    else:
+        from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer
+
+        inner = make_cuda_tracer(scene, tri_arrays)
     return make_alpha_tracer(scene, inner) if alpha else inner

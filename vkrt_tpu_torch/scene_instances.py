@@ -14,10 +14,11 @@ capability:
 * ``repose`` re-bakes only the moved primitive (``scene._bake_primitive``,
   the math of the load) and writes its rows into the device tensors from
   one upload, reading nothing back;
-* ``repose_tracer`` refits the trace structure (``ops/cuda/trace.py::
+* ``repose_tracer`` refits kernel A's trace structure (``ops/cuda/trace.py::
   refit_bvh``): the SAH topology stays and only the dirty rows of kernel
   A's tables are rewritten, the equivalent of the reference's TLAS-only
-  update.
+  update. The ``bvh`` backend rebuilds its LBVH from the re-posed device
+  triangles instead, as the JAX package does.
 
 Device tensors are copy on write, as the JAX package's functional updates
 are: an earlier ``InstancedScene`` or tracer still holds its pose.
@@ -139,19 +140,23 @@ def repose(inst: InstancedScene, prim_idx: int, world_matrix):
 
 
 def repose_tracer(tracer, inst: InstancedScene, moved: np.ndarray):
-    """A tracer rebound to a re-posed scene: kernel A's tracer and the
-    ``bvh`` backend refit their tables (``refit_bvh``: the cost scales with
-    the moved subset, no SAH build runs); the brute-force ``Tracer`` takes
-    the new triangles; an ``AlphaTracer`` wraps its inner tracer, rebound,
-    again."""
+    """A tracer rebound to a re-posed scene: the ``bvh`` backend
+    (``LbvhTracer``) rebuilds its LBVH on the device from the scene's
+    triangles; kernel A's tracer refits its tables (``refit_bvh``: the cost
+    scales with the moved subset, no SAH build runs); the brute-force
+    ``Tracer`` takes the new triangles; an ``AlphaTracer`` wraps its inner
+    tracer, rebound, again."""
     from vkrt_tpu_torch.ops.alpha import AlphaTracer
     from vkrt_tpu_torch.ops.cuda.trace import CudaTracer
+    from vkrt_tpu_torch.ops.cuda.trace_variants import LbvhTracer, make_lbvh_tracer
     from vkrt_tpu_torch.ops.trace import Tracer
 
     sc = inst.scene
     if isinstance(tracer, AlphaTracer):
         return AlphaTracer(sc, repose_tracer(tracer.inner, inst, moved),
                            tracer.rounds, tracer.seed)
+    if isinstance(tracer, LbvhTracer):
+        return make_lbvh_tracer(sc)
     if isinstance(tracer, CudaTracer):
         return tracer.refit(sc, inst.tri_arrays(), moved)
     if isinstance(tracer, Tracer):
