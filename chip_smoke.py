@@ -195,7 +195,18 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    both SIMT efficiencies (kernel D's counts);
 7. the port's suite (``vkrt_tpu_torch.benchmarks.suite``), rows 1, 2 and 7
    at 1280x720 and 8 frames, one JSON line each (rows 3-5 are phases
-   4b-4d, row 8 is 4e).
+   4b-4d, row 8 is 4e);
+8. the port's measurement entry points: ``vkrt_tpu_torch.bench.main()``
+   in-process at its real workload (the Cornell box at 1280x720, spp 1,
+   depth 3, correlated sampler on: frame 0, then 3 batches of 8 frames
+   timed with CUDA events; ``[bench]`` lines: ms/frame, Mrays/s and the
+   batches' spread), kernels A and B launched 6 and 3 times a frame, then
+   the accuracy anchor it runs (``benchmarks/accuracy.py``: 64x48, 3
+   frames on A and B, 6 and 3 launches a frame, against the float64
+   oracle on the host CPU; RMSE, p99 and diverged share printed); the
+   phase fails on any exit but 0 (4: a broken image, 5: the anchor out of
+   budget). Then ``entry()``'s frame step once on the card: finite,
+   non-black, 6 A and 3 B launches.
 
 The last lines are a JSON object of the kernels (each with its time, its
 plain version's time, its bound, the one PyTorch call's time where one
@@ -211,8 +222,9 @@ and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
 ``shade_albedo`` the launches of each rank of phases 4f and 5i;
 ``trace_variant``'s ``lbvh_launches`` the ``bvh`` backend's launches of
 kernel E ``threaded`` in phase 5k, with ``lbvh_ms``, ``lbvh_bound_ms`` and
-``lbvh_plain_ms`` of the city's tiled primaries over the LBVH), the
-card's nvidia-smi line, and
+``lbvh_plain_ms`` of the city's tiled primaries over the LBVH;
+``trace``'s and ``shade``'s ``bench_launches`` and ``accuracy_launches``
+phase 8's bench and anchor), the card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1800,6 +1812,89 @@ def phase_suite(dev, results):
                                    "--height", str(H), "--device", dev.type])
 
 
+BENCH_FRAMES = 1 + 3 * 8  # bench.py's frame 0, then 3 batches of 8
+
+
+def phase_bench(dev, results, card):
+    """Phase 8: ``vkrt_tpu_torch.bench.main()`` at its real workload, the
+    accuracy anchor it runs, and ``entry()``'s frame step. The launch
+    counters are set to 0 just before the bench's frames (``bench.measure``)
+    and the anchor's renders (``accuracy.run``) and read just after each."""
+    import contextlib
+    import io
+
+    import torch
+
+    from vkrt_tpu_torch import bench
+    from vkrt_tpu_torch.benchmarks import accuracy
+    from vkrt_tpu_torch.entry import entry
+    from vkrt_tpu_torch.parallel.render import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    seen = {}
+
+    def counted(name, fn):
+        def call(*args, **kw):
+            reset_launch_counts()
+            out = fn(*args, **kw)
+            seen[name] = (out, launch_counts())
+            return out
+        return call
+
+    measure, run = bench.measure, accuracy.run
+    bench.measure, accuracy.run = counted("bench", measure), counted("accuracy", run)
+    stdout = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(stdout):
+            rc = bench.main([])
+    finally:
+        bench.measure, accuracy.run = measure, run
+    printed = stdout.getvalue().strip().splitlines()
+    for line in printed:
+        log(f"[bench] stdout: {line}")
+    if rc != 0:
+        raise AssertionError(f"vkrt_tpu_torch.bench exited {rc} (4: broken image, 5: the "
+                             "accuracy anchor out of budget)")
+    line = json.loads(printed[-1])
+    res, launches = seen["bench"]
+    rec, anchor_launches = seen["accuracy"]
+    per_frame = path_launches(DEPTH, False)
+    for name, got, frames in (("bench", launches, BENCH_FRAMES),
+                              ("accuracy", anchor_launches, accuracy.FRAMES)):
+        want = {k: v * frames for k, v in per_frame.items()}
+        if got != want:
+            raise AssertionError(f"{name}: launch counts {got} != {want}")
+    batch_ms = [b["ms"] / 8 for b in res["batches"]]
+    host_ms = ", ".join(f"{b['host_ms'] / 8:.4f}" for b in res["batches"])
+    log(f"[bench] {line['metric']}: best batch {line['ms_per_frame']:.4f} ms/frame, "
+        f"{line['value']:.4f} Mrays/s, {res['rays_per_frame']:.0f} rays/frame; batches "
+        f"{', '.join(f'{ms:.4f}' for ms in batch_ms)} ms/frame (spread {min(batch_ms):.4f}-"
+        f"{max(batch_ms):.4f}), host clock {host_ms}; launches {launches} "
+        f"over {BENCH_FRAMES} frames (6 A + 3 B a frame); {line['device']}, "
+        f"{line['power_limit']} ({card})")
+    log(f"[bench] accuracy anchor {rec['workload']}: RMSE {rec['rmse_display']:.6g}, p99 "
+        f"{rec['p99_abs_err']:.6g}, diverged {rec['diverged_frac']:.6g} (budgets 1e-3, 1e-3, "
+        f"0.01), ok {rec['ok']}; launches {anchor_launches} over {accuracy.FRAMES} frames")
+
+    fn, args = entry()
+    reset_launch_counts()
+    accum, rays = fn(*args)
+    got = launch_counts()
+    a = accum.cpu().numpy()
+    if not (np.isfinite(a).all() and float(a.max()) > 0.0 and float(rays) > 0.0):
+        raise AssertionError("entry()'s frame step: non-finite, black or no rays")
+    if got != per_frame:
+        raise AssertionError(f"entry(): launch counts {got} != {per_frame}")
+    log(f"[bench] entry(): {tuple(a.shape)} accum on {accum.device}, finite, max "
+        f"{float(a.max()):.4f}, {float(rays):.0f} rays, launches {got}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for k in ("trace", "shade"):
+        results[k]["bench_launches"] = launches[k]
+        results[k]["accuracy_launches"] = anchor_launches[k]
+    results["bench"] = {"line": line, "accuracy": rec}
+    torch.cuda.synchronize()
+
+
 def phase_mesh_main_path(dev, results, card):
     """Phase 4f: suite row 6 (``cornell_sharded_mesh``) at 1280x720 through
     ``benchmarks.suite.run_sharded_bench``: the glTF Cornell box, spp 1 a
@@ -2732,7 +2827,8 @@ def main() -> int:
                                                           city)),
                         ("5k lbvh", lambda: phase_lbvh(dev, results, city, pools["sponzoid"],
                                                        card)),
-                        ("7 suite", lambda: phase_suite(dev, results))):
+                        ("7 suite", lambda: phase_suite(dev, results)),
+                        ("8 bench", lambda: phase_bench(dev, results, card))):
         t0 = time.perf_counter()
         phase()
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")

@@ -3,7 +3,8 @@ band layout (``vkrt_tpu_torch/parallel``), the app's ``--mesh`` (as
 tests/test_parallel.py::test_app_mesh_cli drives the JAX app's: the spp
 error before any rank starts, then a (2,2) render to PNG), suite row 6
 (``cornell_sharded_mesh``) at 32x24 with the JAX suite's keys,
-``dryrun_multichip(4)`` (the port's ``__graft_entry__.dryrun_multichip``),
+``dryrun_multichip(4)`` (the port's ``__graft_entry__.dryrun_multichip``: the path
+leg, then the hybrid + denoiser leg),
 and a failing rank failing ``launch``."""
 
 import json
@@ -111,7 +112,14 @@ def test_dryrun_multichip(capsys):
     out = dryrun_multichip(4)
     assert out["mesh"] == {"tile": 2, "spp": 2} and out["rays"] > 0
     assert (out["width"], out["height"]) == (32, 8)
-    assert "dryrun_multichip OK: mesh(tile=2, spp=2)" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert "dryrun_multichip OK: mesh(tile=2, spp=2)" in printed
+    # the hybrid + denoiser leg after the path step's line, as in the JAX dry run
+    hybrid = out["hybrid"]
+    assert hybrid["mesh"] == {"tile": 4, "spp": 1} and hybrid["rays"] > 0
+    assert (hybrid["width"], hybrid["height"]) == (32, 32)
+    assert printed.index("dryrun_multichip OK") < printed.index(
+        "dryrun_multichip hybrid+denoiser OK: mesh(tile=4, spp=1)")
 
 
 def test_a_failing_rank_fails_launch():

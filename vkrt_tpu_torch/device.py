@@ -122,6 +122,24 @@ def select(name: str = "cuda") -> torch.device:
     return torch.device(name)
 
 
+def card(dev: torch.device) -> dict:
+    """{"name", "power_limit"} of the card ``dev``: the name as
+    ``torch.cuda.get_device_name`` gives it, the power limit as
+    ``nvidia-smi --query-gpu=power.limit --format=csv,noheader`` prints it
+    (None when nvidia-smi gives nothing). On the CPU: {"name": "cpu",
+    "power_limit": None}."""
+    if dev.type != "cuda":
+        return {"name": "cpu", "power_limit": None}
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    try:
+        res = subprocess.run(["nvidia-smi", "--query-gpu=power.limit", "--format=csv,noheader",
+                              "-i", str(index)], capture_output=True, text=True, timeout=60)
+        limit = res.stdout.strip() if res.returncode == 0 and res.stdout.strip() else None
+    except OSError:
+        limit = None
+    return {"name": torch.cuda.get_device_name(index), "power_limit": limit}
+
+
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME")
     if cuda_home is None:

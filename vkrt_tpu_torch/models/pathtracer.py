@@ -11,6 +11,15 @@ device both of its stages are the hand-written kernels, on the CPU their
 plain versions. Other textured scenes take the general loop here: kernel A
 traces (brute force on the CPU), and ``models/shading.py`` shades in
 PyTorch, as the JAX package shades them in XLA.
+
+The general loop follows the dtype of the scene, the camera and the carry
+(``trace_pixels`` takes the scene's), so a float64 scene
+(``scene.scene_to_dtype``) and camera (``Camera.matrices(dtype=)``) give
+the float64 oracle of ``benchmarks/accuracy.py``, which asks for the
+general loop with ``general_loop=True`` as the JAX oracle takes it with a
+brute-force tracer. RNG draws stay the f32 values of the uint32 LCG and
+widen where they meet the carry, and the ray counters stay f32, as in the
+JAX package. The packed loop is f32 only.
 """
 
 from __future__ import annotations
@@ -43,17 +52,22 @@ class BounceCarry(NamedTuple):
 def bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
                  start_depth: int, clear_color, hitdist_weight: float,
                  hitdist_accumulate: bool, clamp_weights=False,
-                 corr_seed=None) -> BounceCarry:
+                 corr_seed=None, general_loop: bool = False) -> BounceCarry:
     """Run the bounce loop (rgen:62-116). ``corr_seed``: uint32 enabling
     the correlated per-block sampler, None for independent per-lane
     draws. The packed loop (``ops.cuda.shade.bounce_chain_packed``) where
     kernel B shades the scene and the tracer is not seeded per call (an
     alpha tracer's ``with_seed``: kernel A's tables cannot see through a
     transparent surface), else ``general_bounce_chain``; both serve any
-    depth."""
+    depth. ``general_loop``: take the general loop on any scene (the
+    float64 oracle)."""
     if depth <= start_depth:
         return carry
-    packed = kernel_shading_available(scene) and not hasattr(tracer, "with_seed")
+    packed = (not general_loop and kernel_shading_available(scene)
+              and not hasattr(tracer, "with_seed"))
+    if packed and carry.origin.dtype != torch.float32:
+        raise ValueError(f"the packed loop is float32 only, got a {carry.origin.dtype} "
+                         "carry (general_loop=True takes the general loop)")
     loop = bounce_chain_packed if packed else general_bounce_chain
     return loop(
         scene, tracer, carry,
@@ -86,8 +100,9 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
     this loop does not trace them, which gives the same count for any
     depth."""
     n = carry.origin.shape[0]
+    dt = carry.origin.dtype
     lo, hi = clamp_bounds(clamp_weights)
-    clear3 = torch.tensor([float(c) for c in clear_color[:3]], dtype=torch.float32,
+    clear3 = torch.tensor([float(c) for c in clear_color[:3]], dtype=dt,
                           device=carry.origin.device)
     sh_sign = -1.0 if getattr(tracer, "anyhit_kill_capable", False) else 1.0
 
@@ -101,8 +116,11 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
     def live(c, x, dead):
         return torch.where(c.active[:, None], x, dead)
 
+    def main_lim(active):
+        return torch.where(active, t_max, -1.0).to(dt)
+
     hi_cur = closest(carry, live(carry, carry.origin, 1e30),
-                     live(carry, carry.direction, 0.0), torch.where(carry.active, t_max, -1.0))
+                     live(carry, carry.direction, 0.0), main_lim(carry.active))
     c = carry._replace(rays_main=carry.rays_main + carry.active.float().sum())
     for d in range(start_depth, depth):
         trace_next = d < depth - 1
@@ -111,7 +129,7 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
                               c.direction)
         emit_gate = torch.ones_like(c.is_specular) if d == 0 else c.is_specular  # rchit:83
         corr = None if corr_seed is None else corr_draws(n, corr_seed, d,
-                                                         device=c.origin.device)
+                                                         device=c.origin.device).to(dt)
         bs = sample_bsdf(scene, surf, c.direction, c.seed, emit_gate, corr=corr)
 
         # rmiss (raytrace.rmiss:11-19)
@@ -131,7 +149,7 @@ def general_bounce_chain(scene, tracer, carry: BounceCarry, *, depth: int,
         if trace_next:
             nx_o = torch.where(active_next[:, None], surf.world_pos, 1e30)
             nx_d = torch.where(active_next[:, None], bs.next_dir, 0.0)
-            nx_lim = torch.where(active_next, t_max, -1.0)
+            nx_lim = main_lim(active_next)
             res = closest(c, torch.cat([nx_o, surf.world_pos]), torch.cat([nx_d, sh_dir]),
                           torch.cat([nx_lim, sh_lim]))
             hi_next = type(res)(*(x[:n] for x in res))
@@ -190,38 +208,41 @@ def corr_seed_for(frame: int, sample: int, salt: int = 0) -> int:
 def trace_pixels(scene, tracer, cam, width: int, height: int, frame: int,
                  clear_color, *, samples: int, depth: int,
                  clamp_weights=False, corr: bool = False, corr_salt=None,
-                 pix=None, seeds=None) -> PathTraceResult:
-    """Full rgen main() over all pixels (rgen:24-121).
+                 pix=None, seeds=None, general_loop: bool = False) -> PathTraceResult:
+    """Full rgen main() over all pixels (rgen:24-121), in the dtype of the
+    scene (the camera's matrices in the same one).
 
     ``pix``/``seeds``: optional pixel coordinates and RNG states (int32
     bits), e.g. tile-ordered with seeds of the original pixel ids (the
     engine). Defaults cover the whole frame in scanline order.
     ``corr``: correlated per-block sampler; ``corr_salt`` decorrelates the
-    shared-draw tables across shards / spp groups."""
+    shared-draw tables across shards / spp groups. ``general_loop``: see
+    ``bounce_chain``."""
     device = cam.view_inverse.device
+    dt = scene.tri_v0.dtype
     n = width * height if pix is None else pix.shape[0]
     seed = seed_pixels(width, height, frame, device) if seeds is None else seeds
-    hit_values = torch.zeros((n, 3), dtype=torch.float32, device=device)
-    hit_dists = torch.zeros((n,), dtype=torch.float32, device=device)
+    hit_values = torch.zeros((n, 3), dtype=dt, device=device)
+    hit_dists = torch.zeros((n,), dtype=dt, device=device)
     rays = torch.zeros((), dtype=torch.float32, device=device)
     for s in range(samples):
         corr_seed = corr_seed_for(frame, s, corr_salt or 0) if corr else None
         seed, r1 = rnd(seed)
         seed, r2 = rnd(seed)
         if frame == 0:  # rgen:44 centre jitter; both draws still advance
-            jitter = torch.full((n, 2), 0.5, dtype=torch.float32, device=device)
+            jitter = torch.full((n, 2), 0.5, dtype=dt, device=device)
         else:
-            jitter = torch.stack([r1, r2], dim=-1)
+            jitter = torch.stack([r1, r2], dim=-1).to(dt)
         origin, direction = generate_rays(cam, width, height, jitter, pix=pix)
         carry = BounceCarry(
             origin=origin,
             direction=direction,
             seed=seed,
-            cur_weight=torch.ones((n, 3), dtype=torch.float32, device=device),
-            hit_value=torch.zeros((n, 3), dtype=torch.float32, device=device),
+            cur_weight=torch.ones((n, 3), dtype=dt, device=device),
+            hit_value=torch.zeros((n, 3), dtype=dt, device=device),
             active=torch.ones((n,), dtype=torch.bool, device=device),
             is_specular=torch.zeros((n,), dtype=torch.bool, device=device),
-            light_dist=torch.zeros((n,), dtype=torch.float32, device=device),
+            light_dist=torch.zeros((n,), dtype=dt, device=device),
             hit_dists=hit_dists,
             rays_main=rays,
             rays_shadow=torch.zeros((), dtype=torch.float32, device=device),
@@ -230,7 +251,7 @@ def trace_pixels(scene, tracer, cam, width: int, height: int, frame: int,
             scene, tracer, carry, depth=depth, start_depth=0,
             clear_color=clear_color, hitdist_weight=1.0 / samples,
             hitdist_accumulate=True, clamp_weights=clamp_weights,
-            corr_seed=corr_seed,
+            corr_seed=corr_seed, general_loop=general_loop,
         )
         seed = out.seed
         hit_values = hit_values + out.hit_value
@@ -242,7 +263,7 @@ def trace_pixels(scene, tracer, cam, width: int, height: int, frame: int,
 
 def accumulate(accum, new, frame: int):
     """Progressive accumulation mix(old, new, 1/(frame+1)) (rgen:136-145),
-    in f32."""
+    in the dtype of ``new``."""
     if frame <= 0:
         return new
     a = 1.0 / (torch.tensor(float(frame), dtype=new.dtype) + 1.0)
@@ -253,13 +274,13 @@ def accumulate(accum, new, frame: int):
 def pathtrace_frame(scene, tracer, cam, frame: int, accum, clear_color, *,
                     width: int, height: int, samples: int, depth: int,
                     clamp_weights=False, corr: bool = False, pix=None,
-                    seeds=None):
+                    seeds=None, general_loop: bool = False):
     """One path-traced frame + accumulation (hello_vulkan.cpp:1423-1448).
     ``accum``: (H*W, 3) running image in the pixel order of ``pix``.
-    Returns (new_accum, rays)."""
+    ``general_loop``: see ``bounce_chain``. Returns (new_accum, rays)."""
     res = trace_pixels(
         scene, tracer, cam, width, height, frame, clear_color,
         samples=samples, depth=depth, clamp_weights=clamp_weights,
-        corr=corr, pix=pix, seeds=seeds,
+        corr=corr, pix=pix, seeds=seeds, general_loop=general_loop,
     )
     return accumulate(accum, res.radiance, frame), res.rays

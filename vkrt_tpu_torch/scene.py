@@ -345,6 +345,14 @@ def load_scene(path: str, device=None) -> SceneTensors:
     return build_scene(gltf_mod.parse_gltf(path), device=device)
 
 
+def scene_to_dtype(scene: SceneTensors, dtype: torch.dtype = torch.float64) -> SceneTensors:
+    """Every float32 tensor of the scene in ``dtype``; the integer tables and
+    the mip atlas (bf16 by default) stay as they are, as the JAX oracle's
+    ``jax.tree.map`` over the float32 leaves leaves them. The integer
+    tensors are the same objects, so ``tex_slots_used`` still knows them."""
+    return SceneTensors(*(t.to(dtype) if t.dtype == torch.float32 else t for t in scene))
+
+
 def tex_slots_used(scene: SceneTensors) -> dict:
     """{slot name: whether any material references a texture there}, for
     the four slots ``mat_base_tex``, ``mat_mr_tex``, ``mat_normal_tex`` and

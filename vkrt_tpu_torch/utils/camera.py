@@ -1,8 +1,11 @@
 """Camera: lookat/perspective matrices and primary-ray generation.
 
 Port of ``vkrt_tpu/utils/camera.py``. The matrices are built in float64
-numpy (as there) and carried as float32 tensors; ray generation is written
-as explicit multiply-adds in the same order as the JAX version.
+numpy (as there) and carried as float32 tensors, or those float32 values
+widened to another dtype (the float64 oracle's camera, as the JAX oracle
+widens its f32 matrices); ray generation is written as explicit
+multiply-adds in the same order as the JAX version, in the dtype of the
+matrices and the jitter.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ class Camera:
     up: tuple = (0.0, 1.0, 0.0)
     fov_deg: float = 60.0
 
-    def matrices(self, width: int, height: int, device=None) -> CameraMatrices:
+    def matrices(self, width: int, height: int, device=None,
+                 dtype: torch.dtype = torch.float32) -> CameraMatrices:
+        """The four matrices, rounded to float32 and carried in ``dtype``."""
         aspect = width / float(height)
         view = look_at(self.eye, self.center, self.up)
         proj = perspective_vk(self.fov_deg, aspect, NEAR_PLANE, FAR_PLANE)
@@ -47,7 +52,7 @@ class Camera:
                 "view_inverse": np.linalg.inv(view),
                 "proj_inverse": np.linalg.inv(proj),
             },
-            device,
+            device, dtype,
         )
 
 
@@ -65,10 +70,12 @@ def orbit_camera(t: float, center=(0.0, 0.0, 0.0), radius: float = 18.0,
     return Camera(eye=eye, center=tuple(center), fov_deg=fov_deg)
 
 
-def camera_from_numpy(d: dict, device=None) -> CameraMatrices:
-    """``CameraMatrices._asdict()`` of numpy arrays -> f32 tensors."""
+def camera_from_numpy(d: dict, device=None,
+                      dtype: torch.dtype = torch.float32) -> CameraMatrices:
+    """``CameraMatrices._asdict()`` of numpy arrays -> tensors of the values
+    rounded to f32, in ``dtype``."""
     return CameraMatrices(**{
-        k: torch.tensor(np.asarray(d[k], np.float32), device=device)
+        k: torch.tensor(np.asarray(d[k], np.float32), device=device).to(dtype)
         for k in CameraMatrices._fields
     })
 
