@@ -1,0 +1,73 @@
+"""The readings a cell's limits are set from, in one process on the card:
+the program's check numbers over many seeds (each a short window at the
+cell's own size, as many (pixel, frame) pairs compared as a run compares),
+and the control's (the reference in bfloat16 in the program's place) on the
+first ``--control`` seeds. Not part of a benchmark run.
+
+    python -m framebench.readings --workload <cell> --seconds 8 --control 3 \
+        --seeds 11 12 13 ...
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from framebench import check, scenes
+from framebench.cells import make_engine, resolve
+from framebench.run import frame_start
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--workload", required=True)
+    p.add_argument("--seconds", type=float, default=8.0)
+    p.add_argument("--control", type=int, default=3)
+    p.add_argument("--seeds", type=int, nargs="+", required=True)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("framebench.readings needs a CUDA device", file=sys.stderr)
+        return 3
+    cell = resolve(args.workload)
+    inp = scenes.make(cell.config["scene"]["generator"], cell.config["scene"],
+                      f"{cell.bench_dir}/assets")
+    engine = make_engine(cell, inp, "cuda")
+    engine.render_frame()
+    ref = check.Reference(cell, inp, "cuda")
+    ctrl = check.Reference(cell, inp, "cuda", torch.bfloat16) if args.control else None
+    for i, seed in enumerate(args.seeds):
+        engine.frame = frame_start(seed) - 1
+        engine.accum.zero_()
+        engine.accum_rt.zero_()
+        frames = []
+        t0 = time.perf_counter()
+        for _ in range(int(cell.traffic["warmup_frames"])):
+            engine.render_frame()
+            frames.append(engine.frame)
+        while time.perf_counter() - t0 < args.seconds:
+            out = engine.render_frame()
+            frames.append(engine.frame)
+        torch.cuda.synchronize()
+        pids = check.draw_pixels(seed, cell.width * cell.height,
+                                 check.sample_count(len(frames)))
+        program = out[torch.as_tensor(pids, device=out.device)].float().cpu()
+        t1 = time.perf_counter()
+        want = ref.image(pids, frames).cpu()
+        err = check.pixel_errors(program, want)
+        row = {"seed": seed, "frames": len(frames), "pixels": len(pids),
+               "program": check.numbers(program, want),
+               "reference_s": time.perf_counter() - t1,
+               "largest_pixel_errors": sorted(err.tolist())[-5:],
+               "pixels_over": {f"{t:g}": int((err > t).sum()) for t in (1e-6, 1e-4, 1e-3, 1e-2)}}
+        if i < args.control:
+            row["control"] = check.numbers(ctrl.image(pids, frames).cpu(), want)
+        print(json.dumps(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
