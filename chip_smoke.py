@@ -272,8 +272,6 @@ FP32_INSTR_PER_S = FP32_FLOPS / 2
 # is a fused multiply-add
 SLAB_OPS, MT_OPS = 26, 52
 PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
-# the engine's pass labels (utils/profiling.pass_label around a frame)
-PASS_LABELS = ("pathtrace", "hybrid")
 
 
 def log(msg: str) -> None:
@@ -671,7 +669,8 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
         count[0] += 1
         return eng.render_frame()
 
-    trace_kernel.launches = shade.launches = shade.albedo_launches = 0
+    trace_kernel.launches = trace_kernel.lanes = 0
+    shade.launches = shade.albedo_launches = 0
     frames = 0
     for k in range(2):  # warm-up
         frame(k)
@@ -731,18 +730,20 @@ def profile_calls(fn, label: str, calls: int = 4, unit: str = "call") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from vkrt_tpu_torch.utils.profiling import RANGES
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    # device kernels only: the engine's pass labels (record_function ranges)
-    # also appear on the device timeline, as user annotations spanning a frame
+    # device kernels only: the program's named ranges (record_function)
+    # also appear on the device timeline, as user annotations spanning their work
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
-                   and e.name not in PASS_LABELS)
+                   and e.name not in RANGES)
     if not spans:
         raise AssertionError(f"{label}: the profiler saw no device kernel")
     by, other = {"kernel A": 0.0, "kernel B": 0.0, "other": 0.0}, {}

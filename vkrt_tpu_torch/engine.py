@@ -28,8 +28,9 @@ G-buffer, the denoiser's history and the frame counter, and exposes
   denoiser's history stays, as a camera move keeps it.
 
 A frame runs under a ``pass_label`` ("pathtrace" or "hybrid"), a named
-range in torch.profiler traces; inside ``utils.profiling.nan_debug`` a
-non-finite composite raises.
+range in torch.profiler traces around all of it (the seeds, the pass, the
+composite), and a re-pose under "repose"; inside
+``utils.profiling.nan_debug`` a non-finite composite raises.
 
 Pixels run in 32x32-tile order (``utils.camera.tile_perm``) with seeds of
 the original pixel id, ``tea(pid, frame)``, so a pixel's radiance does not
@@ -166,9 +167,10 @@ class Engine:
                              "scene_instances.load_scene_instanced to enable re-posing")
         from vkrt_tpu_torch import scene_instances as si
 
-        self.instances, moved = si.repose(self.instances, prim_idx, world_matrix)
-        self.scene = self.instances.scene
-        self.tracer = si.repose_tracer(self.tracer, self.instances, moved)
+        with profiling.pass_label("repose"):
+            self.instances, moved = si.repose(self.instances, prim_idx, world_matrix)
+            self.scene = self.instances.scene
+            self.tracer = si.repose_tracer(self.tracer, self.instances, moved)
         self.reset_frame()  # geometry changed: restart accumulation
 
     def resize(self, width: int, height: int):
@@ -180,6 +182,13 @@ class Engine:
     def render_frame(self) -> torch.Tensor:
         """One main-loop iteration. Returns the linear composite (N,3) in
         scanline order."""
+        # named range in device traces around the whole frame: the
+        # reference's beginLabel / endLabel (hello_vulkan.cpp:587,
+        # 1432-1447, 1459)
+        with profiling.pass_label("pathtrace" if self.settings.rt_mode == 1 else "hybrid"):
+            return self._frame()
+
+    def _frame(self) -> torch.Tensor:
         self.update_frame()
         s = self.settings
         at_limit = s.stop_at_max_frames and self.frame >= s.max_frames
@@ -191,19 +200,16 @@ class Engine:
             kw = dict(width=self.width, height=self.height, depth=s.depth,
                       clamp_weights=bool(s.clamp_weights), corr=s.corr_sampler,
                       pix=self._pix, seeds=seeds)
-            # named range in device traces: the reference's beginLabel /
-            # endLabel (hello_vulkan.cpp:587, 1432-1447, 1459)
-            with profiling.pass_label("pathtrace" if s.rt_mode == 1 else "hybrid"):
-                if s.rt_mode == 1:
-                    self.accum, rays = pathtrace_frame(
-                        self.scene, self.tracer, cam, self.frame, self.accum,
-                        self.clear_color, samples=s.samples, **kw)
-                else:
-                    self.gbuffer, self.accum_rt, rays, self.denoise_state = hybrid_frame(
-                        self.scene, self.tracer, cam, self.frame, self.accum_rt,
-                        self.clear_color, use_shadows=s.use_shadows, use_ao=s.use_ao,
-                        use_gi=s.use_gi, use_denoiser=s.use_denoiser, perm=self._perm,
-                        inv_perm=self._inv_perm, denoise_state=self.denoise_state, **kw)
+            if s.rt_mode == 1:
+                self.accum, rays = pathtrace_frame(
+                    self.scene, self.tracer, cam, self.frame, self.accum,
+                    self.clear_color, samples=s.samples, **kw)
+            else:
+                self.gbuffer, self.accum_rt, rays, self.denoise_state = hybrid_frame(
+                    self.scene, self.tracer, cam, self.frame, self.accum_rt,
+                    self.clear_color, use_shadows=s.use_shadows, use_ao=s.use_ao,
+                    use_gi=s.use_gi, use_denoiser=s.use_denoiser, perm=self._perm,
+                    inv_perm=self._inv_perm, denoise_state=self.denoise_state, **kw)
             self._total_rays = self._total_rays + rays
         if s.rt_mode == 1:
             out = post_mod.composite(self.accum, None, rt_mode=1,

@@ -21,6 +21,10 @@ trace, one first-hit-kills launch for the shadow and AO rays of every
 pixel together, and the GI chain's traces; kernel B shades the GI chain
 where it shades the scene. The denoiser is PyTorch and launches no kernel
 of its own.
+
+The stages run under named ranges of ``utils.profiling``: "gbuffer",
+"visibility" (the shadow and AO pool and its verdicts), "gi" (the chain
+from depth 1) and "denoise".
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from vkrt_tpu_torch.ops import nrd
 from vkrt_tpu_torch.ops.rng import MASK32, corr_draws, rnd, seed_pixels
 from vkrt_tpu_torch.ops.sampling import create_coordinate_system, sampling_hemisphere
 from vkrt_tpu_torch.utils.camera import retile, untile
+from vkrt_tpu_torch.utils.profiling import pass_label
 from vkrt_tpu_torch.utils.smath import dot, length, normalize, reflect
 
 AO_SAMPLES = 4        # raytraceHybrid.rgen:31
@@ -86,91 +91,93 @@ def hybrid_effects(scene, tracer, gbuf: GBuffer, cam, seed, frame: int, accum_rt
     # from the same G-buffer point: one first-hit-kills trace for all of
     # them (per-lane limits; a lane that skips its query gets d = 0 and
     # limit 0, which never hits). The RNG draw order is unchanged.
-    vis_dirs, vis_lims = [], []
-    if use_shadows:  # rgen:81-131
-        seed, r = rnd(seed)  # drawn even when the shared draw replaces it
-        if corr:
-            r = corr_tab(CORR_KEY_SHADOW)[:, 1]
-        light_idx = torch.clamp((r * float(n_lights)).to(torch.int32), 0, n_lights - 1).long()
-        ldir = scene.light_pos[light_idx] - world_pos
-        ldist = length(ldir)
-        l = ldir / torch.clamp_min(ldist[:, None], 1e-20)
-        facing = dot(l, world_nrm) >= 0.0
-        do_trace = shaded & facing
-        vis_dirs.append(torch.where(do_trace[:, None], l, 0.0))
-        vis_lims.append(torch.where(do_trace,
-                                    torch.clamp_min(ldist - SHADOW_T_MIN, SHADOW_T_MIN), 0.0))
-        rays = rays + do_trace.float().sum()
-
-    if use_ao:  # rgen:133-169
-        tangent, binormal = create_coordinate_system(world_nrm)
-        for i_ao in range(AO_SAMPLES):
-            u = None
+    with pass_label("visibility"):
+        vis_dirs, vis_lims = [], []
+        if use_shadows:  # rgen:81-131
+            seed, r = rnd(seed)  # drawn even when the shared draw replaces it
             if corr:
-                t = corr_tab(CORR_KEY_AO + i_ao)
-                u = (t[:, 2], t[:, 3])
-            seed, d = sampling_hemisphere(seed, tangent, binormal, world_nrm, uniforms=u)
-            vis_dirs.append(torch.where(shaded[:, None], normalize(d), 0.0))
-            vis_lims.append(torch.where(shaded, RTAO_RADIUS, 0.0))
-        rays = rays + AO_SAMPLES * shaded.float().sum()
+                r = corr_tab(CORR_KEY_SHADOW)[:, 1]
+            light_idx = torch.clamp((r * float(n_lights)).to(torch.int32), 0, n_lights - 1).long()
+            ldir = scene.light_pos[light_idx] - world_pos
+            ldist = length(ldir)
+            l = ldir / torch.clamp_min(ldist[:, None], 1e-20)
+            facing = dot(l, world_nrm) >= 0.0
+            do_trace = shaded & facing
+            vis_dirs.append(torch.where(do_trace[:, None], l, 0.0))
+            vis_lims.append(torch.where(do_trace,
+                                        torch.clamp_min(ldist - SHADOW_T_MIN, SHADOW_T_MIN), 0.0))
+            rays = rays + do_trace.float().sum()
 
-    if vis_dirs:
-        k = len(vis_dirs)
-        vis_tracer = tracer.with_seed(seed) if hasattr(tracer, "with_seed") else tracer
-        hits = vis_tracer.any(world_pos.repeat(k, 1), torch.cat(vis_dirs), SHADOW_T_MIN,
-                              torch.cat(vis_lims)).reshape(k, n)
-        seg = 0
-        if use_shadows:
-            blocked = hits[0]
-            seg = 1
-            visibility = torch.where(facing & ~(blocked & do_trace), 1.0, 0.0)
-            visibility = torch.clamp_min(visibility, 0.01)  # rgen:129
-            color_a = torch.where(shaded, color_a * visibility, color_a)
-        if use_ao:
-            ao = torch.where(hits[seg:seg + AO_SAMPLES] & shaded[None, :],
-                             1.0 / AO_SAMPLES, 0.0).sum(dim=0)
-            color_a = torch.where(shaded, color_a * (1.0 - ao), color_a)
+        if use_ao:  # rgen:133-169
+            tangent, binormal = create_coordinate_system(world_nrm)
+            for i_ao in range(AO_SAMPLES):
+                u = None
+                if corr:
+                    t = corr_tab(CORR_KEY_AO + i_ao)
+                    u = (t[:, 2], t[:, 3])
+                seed, d = sampling_hemisphere(seed, tangent, binormal, world_nrm, uniforms=u)
+                vis_dirs.append(torch.where(shaded[:, None], normalize(d), 0.0))
+                vis_lims.append(torch.where(shaded, RTAO_RADIUS, 0.0))
+            rays = rays + AO_SAMPLES * shaded.float().sum()
+
+        if vis_dirs:
+            k = len(vis_dirs)
+            vis_tracer = tracer.with_seed(seed) if hasattr(tracer, "with_seed") else tracer
+            hits = vis_tracer.any(world_pos.repeat(k, 1), torch.cat(vis_dirs), SHADOW_T_MIN,
+                                  torch.cat(vis_lims)).reshape(k, n)
+            seg = 0
+            if use_shadows:
+                blocked = hits[0]
+                seg = 1
+                visibility = torch.where(facing & ~(blocked & do_trace), 1.0, 0.0)
+                visibility = torch.clamp_min(visibility, 0.01)  # rgen:129
+                color_a = torch.where(shaded, color_a * visibility, color_a)
+            if use_ao:
+                ao = torch.where(hits[seg:seg + AO_SAMPLES] & shaded[None, :],
+                                 1.0 / AO_SAMPLES, 0.0).sum(dim=0)
+                color_a = torch.where(shaded, color_a * (1.0 - ao), color_a)
 
     diff_rad_hitd = torch.zeros((n, 4), dtype=torch.float32, device=device)
-    if use_gi:  # rgen:171-282
-        ratio = metalness * (1.0 - roughness)  # rgen:184 (not the path formula)
-        is_diffuse = ratio < 0.8
-        tangent, binormal = create_coordinate_system(world_nrm)
-        u = None
-        if corr:
-            t = corr_tab(CORR_KEY_GI)
-            u = (t[:, 2], t[:, 3])
-        seed_d, hemi = sampling_hemisphere(seed, tangent, binormal, world_nrm, uniforms=u)
-        dir_d = normalize(hemi)
-        eye = cam.view_inverse[:3, 3]
-        v = normalize(eye - world_pos)
-        dir_s = normalize(reflect(-v, world_nrm))
-        carry = BounceCarry(
-            origin=world_pos,
-            direction=torch.where(is_diffuse[:, None], dir_d, dir_s),
-            seed=torch.where(is_diffuse, seed_d, seed),
-            cur_weight=torch.where(is_diffuse[:, None], albedo, 1.0),
-            hit_value=torch.zeros((n, 3), dtype=torch.float32, device=device),
-            active=shaded,
-            is_specular=~is_diffuse,
-            light_dist=torch.zeros((n,), dtype=torch.float32, device=device),
-            hit_dists=torch.zeros((n,), dtype=torch.float32, device=device),
-            rays_main=rays,
-            rays_shadow=torch.zeros((), dtype=torch.float32, device=device),
-        )
-        out = bounce_chain(
-            scene, tracer, carry, depth=depth, start_depth=1,
-            clear_color=(0.0, 0.0, 0.0, 0.0),  # unused: d > 0 misses get 0.01
-            hitdist_weight=1.0,
-            hitdist_accumulate=False,  # hybrid overwrites (rgen:257-263)
-            clamp_weights=clamp_weights, corr_seed=corr_seed,
-        )
-        seed = out.seed
-        rays = out.rays_main + out.rays_shadow
-        gi = torch.where(shaded[:, None], out.hit_value, 0.0)
-        color_rgb = gi  # rgen:271: color.rgb = indirectColor.rgb
-        nh = nrd.norm_hit_dist(out.hit_dists, gbuf.view_z, roughness)
-        diff_rad_hitd = nrd.pack_radiance_and_norm_hit_dist(gi, nh)
+    with pass_label("gi"):
+        if use_gi:  # rgen:171-282
+            ratio = metalness * (1.0 - roughness)  # rgen:184 (not the path formula)
+            is_diffuse = ratio < 0.8
+            tangent, binormal = create_coordinate_system(world_nrm)
+            u = None
+            if corr:
+                t = corr_tab(CORR_KEY_GI)
+                u = (t[:, 2], t[:, 3])
+            seed_d, hemi = sampling_hemisphere(seed, tangent, binormal, world_nrm, uniforms=u)
+            dir_d = normalize(hemi)
+            eye = cam.view_inverse[:3, 3]
+            v = normalize(eye - world_pos)
+            dir_s = normalize(reflect(-v, world_nrm))
+            carry = BounceCarry(
+                origin=world_pos,
+                direction=torch.where(is_diffuse[:, None], dir_d, dir_s),
+                seed=torch.where(is_diffuse, seed_d, seed),
+                cur_weight=torch.where(is_diffuse[:, None], albedo, 1.0),
+                hit_value=torch.zeros((n, 3), dtype=torch.float32, device=device),
+                active=shaded,
+                is_specular=~is_diffuse,
+                light_dist=torch.zeros((n,), dtype=torch.float32, device=device),
+                hit_dists=torch.zeros((n,), dtype=torch.float32, device=device),
+                rays_main=rays,
+                rays_shadow=torch.zeros((), dtype=torch.float32, device=device),
+            )
+            out = bounce_chain(
+                scene, tracer, carry, depth=depth, start_depth=1,
+                clear_color=(0.0, 0.0, 0.0, 0.0),  # unused: d > 0 misses get 0.01
+                hitdist_weight=1.0,
+                hitdist_accumulate=False,  # hybrid overwrites (rgen:257-263)
+                clamp_weights=clamp_weights, corr_seed=corr_seed,
+            )
+            seed = out.seed
+            rays = out.rays_main + out.rays_shadow
+            gi = torch.where(shaded[:, None], out.hit_value, 0.0)
+            color_rgb = gi  # rgen:271: color.rgb = indirectColor.rgb
+            nh = nrd.norm_hit_dist(out.hit_dists, gbuf.view_z, roughness)
+            diff_rad_hitd = nrd.pack_radiance_and_norm_hit_dist(gi, nh)
 
     color = torch.cat([color_rgb, color_a[:, None]], dim=-1)
     # background pixels accumulate (0,0,0,1) (rgen:67-71)
@@ -203,7 +210,8 @@ def hybrid_frame(scene, tracer, cam, frame: int, accum_rt, clear_color, *, width
     form (``denoise_temporal_tile``), which is temporal only.
     ``corr_salt``: see ``hybrid_effects``."""
     device = cam.view_inverse.device
-    gbuf = gbuffer_pass(scene, tracer, cam, width, height, clear_color, pix=pix)
+    with pass_label("gbuffer"):
+        gbuf = gbuffer_pass(scene, tracer, cam, width, height, clear_color, pix=pix)
     seed = seed_pixels(width, height, frame, device) if seeds is None else seeds
     new_accum, diff_rad_hitd, _, rays = hybrid_effects(
         scene, tracer, gbuf, cam, seed, frame, accum_rt, depth=depth,
@@ -215,9 +223,10 @@ def hybrid_frame(scene, tracer, cam, frame: int, accum_rt, clear_color, *, width
     if use_denoiser and use_gi and tile_axis is not None:
         if denoise_state is None:
             raise ValueError("the band denoiser is temporal only: pass a denoise_state")
-        filtered, new_state = dn.denoise_temporal_tile(
-            denoise_state, diff_rad_hitd, gbuf.norm_rough, gbuf.view_z,
-            gbuf.position[:, :3], cam.view_proj, width, height, tile_axis)
+        with pass_label("denoise"):
+            filtered, new_state = dn.denoise_temporal_tile(
+                denoise_state, diff_rad_hitd, gbuf.norm_rough, gbuf.view_z,
+                gbuf.position[:, :3], cam.view_proj, width, height, tile_axis)
         new_accum = torch.cat([filtered, new_accum[:, 3:4]], dim=-1)
     elif use_denoiser and use_gi:
         if pix is not None and inv_perm is None:
@@ -229,14 +238,15 @@ def hybrid_frame(scene, tracer, cam, frame: int, accum_rt, clear_color, *, width
                 return a
             return untile(a, width, height) if structured else a[inv_perm]
 
-        if denoise_state is not None:
-            filtered, new_state = dn.denoise_temporal(
-                denoise_state, unperm(diff_rad_hitd), unperm(gbuf.norm_rough),
-                unperm(gbuf.view_z), unperm(gbuf.position[:, :3]), cam.view_proj,
-                width, height)
-        else:
-            filtered = dn.denoise_gi(unperm(diff_rad_hitd), unperm(gbuf.norm_rough),
-                                     unperm(gbuf.view_z), width, height)
+        with pass_label("denoise"):
+            if denoise_state is not None:
+                filtered, new_state = dn.denoise_temporal(
+                    denoise_state, unperm(diff_rad_hitd), unperm(gbuf.norm_rough),
+                    unperm(gbuf.view_z), unperm(gbuf.position[:, :3]), cam.view_proj,
+                    width, height)
+            else:
+                filtered = dn.denoise_gi(unperm(diff_rad_hitd), unperm(gbuf.norm_rough),
+                                         unperm(gbuf.view_z), width, height)
         if perm is not None:
             filtered = retile(filtered, width, height) if structured else filtered[perm]
         new_accum = torch.cat([filtered, new_accum[:, 3:4]], dim=-1)

@@ -437,9 +437,12 @@ def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
                  t_min: float = T_MIN, any_hit: bool = False) -> RayHits:
     """Trace (N,3) o and d with (N,) limits; the kernel's contract (see
     ``ops/trace.py``). ``o`` and ``d`` may be strided views, e.g. rows of a
-    (7, N) ray block transposed; ``t_lim`` must be contiguous."""
+    (7, N) ray block transposed; ``t_lim`` must be contiguous. Counts the
+    card's launches in ``trace_kernel.launches`` and the lanes handed to
+    it, on either device, in ``trace_kernel.lanes``."""
     if o.device.type == "cpu":
         check_bvh(bvh)
+        trace_kernel.lanes += o.shape[0]
         return trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2,
                                      o, d, t_lim, t_min)
     n = check_rays("trace_kernel", o, d, t_lim, check_bvh(bvh))
@@ -456,10 +459,12 @@ def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
         t_out.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
     )
     trace_kernel.launches += 1
+    trace_kernel.lanes += n
     return RayHits(t_out, tri, u, v)
 
 
 trace_kernel.launches = 0
+trace_kernel.lanes = 0  # padded and dead lanes included: what a launch walks
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,11 +9,16 @@ raises "rshift_cpu not implemented"), and TEA needs a logical ``>> 5``. So
 the arithmetic runs in int64 holding values in [0, 2^32), masked after every
 add and shift, and state is stored as int32 bits (``u32_bits``): the same 32
 bits a uint32 array holds, viewable as one with ``.numpy().view(np.uint32)``.
+
+The RNG prologue (``tea``, the correlated-draw tables) runs under the
+"rng" range of ``utils.profiling``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from vkrt_tpu_torch.utils.profiling import labelled
 
 MASK32 = 0xFFFFFFFF
 _LCG_A = 1664525
@@ -36,6 +41,7 @@ def u32_bits(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32)
 
 
+@labelled("rng")
 def tea(val0, val1, rounds: int = 16) -> torch.Tensor:
     """TEA hash (shaders/random.glsl:6-20). Inputs broadcast; returns the
     uint32 result as int32 bits."""
@@ -81,6 +87,7 @@ def seed_pixels(width: int, height: int, frame, device=None) -> torch.Tensor:
 # --- correlated per-block sampling (see vkrt_tpu/ops/rng.py) ---------------
 
 
+@labelled("rng")
 def block_uniform_table(n_blocks: int, corr_seed, depth: int,
                         device=None) -> torch.Tensor:
     """(G, 8) f32 of per-block shared uniforms in [0,1) for one bounce.
@@ -105,6 +112,7 @@ def block_table_rep(n_blocks: int, corr_seed, depth: int,
     return block_uniform_table(n_blocks, corr_seed, depth, device)
 
 
+@labelled("rng")
 def corr_draws(n: int, corr_seed, depth: int, block: int = CORR_BLOCK,
                device=None) -> torch.Tensor:
     """Per-lane view of the block table: (N, CORR_DRAWS) f32, each

@@ -9,7 +9,8 @@ path tracer samples level 0; the mip paths serve the hybrid G-buffer.
 Numerics follow the JAX package: the wrap is ``uv - floor(uv)``, the texel
 indices wrap with a floor modulo (``torch.remainder``: ``x0 = -1`` wraps to
 ``w - 1``; ``%`` on negative ints is not used), and the bilinear sum keeps
-its term order.
+its term order. Every fetch runs under the "texture" range of
+``utils.profiling``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 
 import numpy as np
 import torch
+
+from vkrt_tpu_torch.utils.profiling import labelled
 
 # Anisotropic tap count, read and validated once at import. 4 matches the
 # reference sampler's maxAnisotropy (hello_vulkan.cpp:452-454); 2 halves
@@ -66,6 +69,7 @@ def _bilinear_at_level(tex_flat, k, th, tw, uv, wi, hi, xoff=None):
             + c11 * ax * ay)
 
 
+@labelled("texture")
 def sample_texture(tex_rgba, tex_size, tex_idx, uv):
     """Bilinear REPEAT sample of level 0. ``tex_idx`` (N,) int (-1 =>
     white), ``uv`` (N, 2). Returns (N, 4) RGBA f32. Texel centres at
@@ -78,6 +82,7 @@ def sample_texture(tex_rgba, tex_size, tex_idx, uv):
     return torch.where((tex_idx >= 0)[:, None], c, 1.0)
 
 
+@labelled("texture")
 def sample_texture_lod(atlas, level_size, level_off, n_levels, tex_idx, uv, lod):
     """Trilinear mip sample (GL_LINEAR_MIPMAP_LINEAR). ``tex_idx`` (N,)
     (-1 => white), ``uv`` (N, 2), ``lod`` (N,) continuous level of detail.
@@ -125,6 +130,7 @@ def aniso_minor_lod(level_size, tex_idx, ddx_uv, ddy_uv):
     return _minor_lod(*_footprint(level_size, tex_idx, ddx_uv, ddy_uv))
 
 
+@labelled("texture")
 def sample_texture_aniso(atlas, level_size, level_off, n_levels, tex_idx, uv,
                          ddx_uv, ddy_uv, taps=None):
     """4x anisotropic trilinear sample from screen-space UV derivatives

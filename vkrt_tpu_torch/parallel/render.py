@@ -207,7 +207,8 @@ def reset_launch_counts() -> None:
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
-    trace_kernel.launches = shade.launches = shade.albedo_launches = 0
+    trace_kernel.launches = trace_kernel.lanes = 0
+    shade.launches = shade.albedo_launches = 0
 
 
 # --- rank functions (``mesh.launch`` spawns them by name) --------------------

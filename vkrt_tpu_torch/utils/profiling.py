@@ -5,15 +5,18 @@ The reference's observability is an ImGui ms/frame + FPS readout
 (main.cpp:459) and debug-utils pass labels visible in Nsight
 (hello_vulkan.cpp:587-1472). Here: ``FrameStats`` (ms/frame, FPS, Mrays/s),
 ``pass_label`` (a named range in torch.profiler traces, the analog of
-beginLabel/endLabel), ``timed_frame`` (a host clock that synchronises the
-device first), ``device_trace`` (a torch.profiler Chrome trace of the host
-and the card) and ``nan_debug`` (a tripwire for non-finite frames).
+beginLabel/endLabel, opened only while a profiler records; ``labelled``
+puts a function under one), ``timed_frame`` (a host clock that
+synchronises the device first), ``device_trace`` (a torch.profiler Chrome
+trace of the host and the card) and ``nan_debug`` (a tripwire for
+non-finite frames).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import json
 import os
 import sys
@@ -64,11 +67,37 @@ class FrameStats:
         print(json.dumps(self.summary()), file=stream or sys.stderr)
 
 
-@contextlib.contextmanager
+# The program's named ranges, each read by a stage of a trace: the frame
+# ("pathtrace" or "hybrid", around all of ``Engine.render_frame``), the RNG
+# prologue ("rng": ``ops/rng.py``'s TEA seeds and correlated-draw tables),
+# the hybrid's stages ("gbuffer", "visibility", "gi", "denoise"), every
+# texel fetch ("texture") and a re-pose ("repose").
+FRAME_RANGES = ("pathtrace", "hybrid")
+RANGES = FRAME_RANGES + ("rng", "gbuffer", "visibility", "gi", "texture", "denoise", "repose")
+_NO_RANGE = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a profiler records: ``torch.profiler.profile`` and
+    ``device_trace`` alike."""
+    return torch._C._autograd._profiler_enabled()
+
+
 def pass_label(name: str):
-    """Named range in torch.profiler traces: beginLabel/endLabel."""
-    with torch.profiler.record_function(name):
-        yield
+    """Named range in torch.profiler traces: beginLabel/endLabel. With no
+    profiler recording it opens nothing, so a range costs one test."""
+    return torch.profiler.record_function(name) if recording() else _NO_RANGE
+
+
+def labelled(name: str):
+    """Decorator: every call of the function under ``pass_label(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with pass_label(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def synchronize(device) -> None:
