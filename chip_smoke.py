@@ -27,6 +27,12 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    ``shade_plain`` on the card: bounces 0 and 1 of ``make_city(grid=96)``'s
    1280x720 tile-ordered pool, correlated sampler on, the suite's city
    camera ``orbit_camera(0.12, radius=300, height=48)``;
+3c. the RNG prologue's kernels (``csrc/rng.cu``) against the int64 plain
+   path on the card, at the cells' sizes: the seeds of 3840x2160 tile-ordered
+   pixel ids (16 rounds), the city's 8,100-row table and the hybrid's
+   8,294,400-lane ``corr_draws`` view, bit for bit; each kernel's time, its
+   bound and the plain path's device and host ms a call (the plain
+   functions called by name: on the card the dispatch takes the kernels);
 4b. the city's main path (``benchmarks/suite.py`` row 3): ``Engine`` on
    ``make_city(grid=96)`` at 1280x720, spp 1, depth 4, correlated sampler
    on, that camera, clear (1,1,1,1) -- 2 warm-up frames, then 3 batches of
@@ -214,9 +220,13 @@ computes the same function and its launches on its path; ``trace`` and
 ``shade`` count Cornell's main path in ``launches``, the city's in
 ``city_launches``, the hybrid path's in ``hybrid_launches`` and the
 denoised fly-through's in ``denoised_launches``, as does ``shade_albedo``;
-``trace``'s ``alpha_launches`` counts phase 5f's full-size alpha run, its
-``sponzoid_launches`` and ``sponzoid_animated_launches`` phase 4e's static
-and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
+``rng_tea`` and ``rng_table`` count the RNG kernels' launches on the
+main paths of phases 4, 4b and 4c in ``launches``, ``city_launches`` and
+``hybrid_launches``, and on phase 4e's static sponzoid in
+``sponzoid_launches``, each checked against ``rng_launches`` as the
+kernels' counts are against theirs; ``trace``'s ``alpha_launches`` counts
+phase 5f's full-size alpha run, its ``sponzoid_launches`` and
+``sponzoid_animated_launches`` phase 4e's static and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
 ``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card, and
 ``mesh_launches`` / ``mesh_hybrid_launches`` of ``trace``, ``shade`` and
 ``shade_albedo`` the launches of each rank of phases 4f and 5i;
@@ -259,6 +269,8 @@ KERNELS = {
     "trace_ablate": (CSRC + "trace_variants.cu", "benchmarks/scratch/ablate_kernel.py:95"),
     "trace_variant": (CSRC + "trace_variants.cu", "benchmarks/scratch/variants.py:220"),
     "fma_peak": (CSRC + "probes.cu", "benchmarks/scratch/vpupeak.py:65"),
+    "rng_tea": (CSRC + "rng.cu", "none (vkrt_tpu/ops/rng.py::tea, in XLA)"),
+    "rng_table": (CSRC + "rng.cu", "none (vkrt_tpu/ops/rng.py::corr_draws, in XLA)"),
 }
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -271,6 +283,14 @@ FP32_INSTR_PER_S = FP32_FLOPS / 2
 # traversal kernels (csrc/trace.cu), counted from the source: none of them
 # is a fused multiply-add
 SLAB_OPS, MT_OPS = 26, 52
+# integer instructions of one TEA round a lane at the least (csrc/rng.cu):
+# per half a shift-add, an add, a shift-add, a three-way xor, an accumulate;
+# the bound takes 128 a clock an SM, the combined issue limit of the INT32
+# pipe (64 lanes) and the IMAD work the compiler can move onto the FMA
+# pipe: an optimistic bound (the INT32 pipe alone would give twice the time)
+TEA_ROUND_OPS = 10
+# the cells' frame (framebench/configs/city-2160p.json)
+RNG_W, RNG_H = 3840, 2160
 PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
 
 
@@ -627,6 +647,66 @@ def phase_albedo(dev, results, cb):
     results["shade_albedo"]["max_abs_err"] = max(errs)
 
 
+def phase_rng(dev, results):
+    """Phase 3c: the RNG prologue's kernels against the int64 plain path on
+    the card (``tea_plain``, ``block_uniform_table_plain``,
+    ``corr_draws_plain`` called by name), at the cells' sizes."""
+    import torch
+
+    from vkrt_tpu_torch.benchmarks import time_calls
+    from vkrt_tpu_torch.ops import rng
+    from vkrt_tpu_torch.utils.camera import tile_perm
+
+    n = RNG_W * RNG_H
+    perm, _ = tile_perm(RNG_W, RNG_H)
+    pid = torch.as_tensor(perm.astype(np.int64), device=dev)
+    frame, corr_seed, g = 0x9E3779B9, 0xDEADBEEF, n // 1024
+
+    def run(name, kernel, plain, n_bytes, instrs, what):
+        check_equal(f"{name} {what}", (kernel().view(torch.int32),), (plain().view(torch.int32),))
+        ms = cuda_ms(kernel)
+        plain_ms, plain_host_ms = time_calls(plain, 3, dev)
+        b_ms, b_by = bound(n_bytes, instrs)
+        log(f"[rng] {name} {what}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"plain {plain_ms:.4f} device ms, {plain_host_ms:.4f} host ms a call")
+        return {"ms": ms, "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "max_abs_err": 0.0}
+
+    results["rng_tea"] = run(
+        "tea", lambda: rng.tea(pid, frame), lambda: rng.tea_plain(pid, frame),
+        n * (8 + 4), n * 16 * TEA_ROUND_OPS, f"16 rounds, {RNG_W}x{RNG_H} pixel ids")
+    # a table row: 8 rounds, then 6 draws of a multiply-add, a mask, a
+    # conversion and a multiply
+    row_ops = 8 * TEA_ROUND_OPS + 6 * 4
+    results["rng_table"] = run(
+        "table", lambda: rng.block_table_rep(g, corr_seed, 3, device=dev),
+        lambda: rng.block_uniform_table_plain(g, corr_seed, 3, device=dev),
+        g * 8 * 4, g * row_ops, f"{g} rows (G, 8)")
+    results["rng_table"]["lanes"] = run(
+        "corr_draws", lambda: rng.corr_draws(n, corr_seed, 66, device=dev),
+        lambda: rng.corr_draws_plain(n, corr_seed, 66, device=dev),
+        n * 6 * 4, g * row_ops, f"{n} lanes (N, 6)")
+
+
+def rng_launches(settings, alpha_traces: int = 0) -> dict:
+    """The RNG kernels' launches a frame (``csrc/rng.cu``): one ``tea`` of
+    the pixel seeds, and ``DEFAULT_ROUNDS`` more for each of
+    ``alpha_traces`` alpha-tested traces (a punch draw a round); with the
+    correlated sampler on, one table a draw set: each sample's bounces in
+    path mode, and in hybrid mode the shadow's light pick, each AO sample,
+    GI's lobe and each of GI's depth - 1 bounces."""
+    from vkrt_tpu_torch.models.hybrid import AO_SAMPLES
+    from vkrt_tpu_torch.ops.alpha import DEFAULT_ROUNDS
+
+    s = settings
+    if s.rt_mode == 1:
+        tables = s.samples * s.depth
+    else:
+        tables = int(s.use_shadows) + AO_SAMPLES * int(s.use_ao) + s.depth * int(s.use_gi)
+    return {"rng_tea": 1 + alpha_traces * DEFAULT_ROUNDS,
+            "rng_table": tables if s.corr_sampler else 0}
+
+
 def path_launches(depth: int, albedo: bool) -> dict:
     """Launches a path-mode frame makes: kernel A 2 * depth times (a closest
     and a shadow trace a bounce), kernel B depth times (all of them albedo
@@ -648,7 +728,8 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     """A main path: 2 warm-up frames, then ``batches_n`` batches of 8 frames
     timed with CUDA events, with the launch counters set to 0 just before
     and read just after. Each counter must grow by ``per_frame`` a frame
-    (keys trace, shade, shade_albedo). ``pose``: camera of the k-th frame
+    (keys trace, shade, shade_albedo, and rng_tea and rng_table of
+    ``rng_launches``). ``pose``: camera of the k-th frame
     of the warm-up or of a batch (a fly-through: ``eng.camera`` is set
     before each frame), None for a fixed camera. ``step``: called with the
     run's frame index before each frame (an animated scene's re-pose), its
@@ -656,6 +737,7 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     rays/frame), launches, the last frame's image)."""
     import torch
 
+    from vkrt_tpu_torch.ops.cuda import rng as rng_cuda
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
@@ -671,6 +753,7 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
 
     trace_kernel.launches = trace_kernel.lanes = 0
     shade.launches = shade.albedo_launches = 0
+    rng_cuda.tea.launches = rng_cuda.table.launches = 0
     frames = 0
     for k in range(2):  # warm-up
         frame(k)
@@ -691,7 +774,8 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
         rays = eng.total_rays - rays0
         batches.append((ms / 8, rays / (ms * 1e-3) / 1e6, rays / 8))
     launches = {"trace": trace_kernel.launches, "shade": shade.launches,
-                "shade_albedo": shade.albedo_launches}
+                "shade_albedo": shade.albedo_launches, "rng_tea": rng_cuda.tea.launches,
+                "rng_table": rng_cuda.table.launches}
     for ms, mrays, rpf in batches:
         log(f"[{label}] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
     best = min(batches)
@@ -781,9 +865,10 @@ def phase_main_path(dev, results):
     from vkrt_tpu_torch.utils.camera import Camera
 
     eng = Engine(load_cornell(device=dev), W, H, path_settings(DEPTH), Camera(), CLEAR)
-    best, launches, _ = drive_engine(eng, path_launches(DEPTH, False), "main")
-    results["trace"]["launches"] = launches["trace"]
-    results["shade"]["launches"] = launches["shade"]
+    best, launches, _ = drive_engine(
+        eng, {**path_launches(DEPTH, False), **rng_launches(eng.settings)}, "main")
+    for name in ("trace", "shade", "rng_tea", "rng_table"):
+        results[name]["launches"] = launches[name]
     results["main"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
                        "profile": profile_frames(eng, "main")}
 
@@ -798,12 +883,14 @@ def phase_city_main_path(dev, results, city):
     eng = Engine(city, W, H, path_settings(CITY_DEPTH), orbit_camera(**CITY_CAM), CLEAR)
     log(f"[city] Engine on {city.num_tris} triangles (padded): set-up with its BVH "
         f"{time.perf_counter() - t0:.2f} s")
-    best, launches, _ = drive_engine(eng, path_launches(CITY_DEPTH, True), "city")
+    best, launches, _ = drive_engine(
+        eng, {**path_launches(CITY_DEPTH, True), **rng_launches(eng.settings)}, "city")
     results["shade_albedo"]["launches"] = launches["shade_albedo"]
     # the city path's own counts of kernels A and B (B's: all of them albedo
-    # launches, so they equal shade_albedo's); "launches" is Cornell's
-    results["trace"]["city_launches"] = launches["trace"]
-    results["shade"]["city_launches"] = launches["shade"]
+    # launches, so they equal shade_albedo's) and of the RNG kernels;
+    # "launches" is Cornell's
+    for name in ("trace", "shade", "rng_tea", "rng_table"):
+        results[name]["city_launches"] = launches[name]
     results["city"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
                        "rays_per_frame": best[2], "profile": profile_frames(eng, "city")}
 
@@ -854,11 +941,11 @@ def phase_hybrid_main_path(dev, results, city):
     settings = RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_shadows=True,
                               use_ao=True, use_gi=True, corr_sampler=True)
     eng = Engine(city, W, H, settings, orbit_camera(**CITY_CAM), CLEAR)
-    per_frame = hybrid_launches(HYBRID_DEPTH, True)
+    per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(settings)}
     best, launches, _ = drive_engine(eng, per_frame, "hybrid")
     if not (launches["trace"] > 0 and launches["shade"] > 0):
         raise AssertionError(f"hybrid path launches {launches}")
-    for name in ("trace", "shade", "shade_albedo"):
+    for name in ("trace", "shade", "shade_albedo", "rng_tea", "rng_table"):
         results[name]["hybrid_launches"] = launches[name]
     profile = profile_frames(eng, "hybrid")
 
@@ -979,9 +1066,10 @@ def phase_sponzoid(dev, results, card):
         f"{bvh0.nodes.shape[0]} child-box records, depth {bvh0.depth}")
     if kernel_shading_available(eng.scene):
         raise AssertionError("the sponzoid would take the packed loop, not the general loop")
-    per = general_launches(SPONZOID_DEPTH)
+    per = {**general_launches(SPONZOID_DEPTH), **rng_launches(eng.settings)}
     static, launches, _ = drive_engine(eng, per, "sponzoid")
-    results["trace"]["sponzoid_launches"] = launches["trace"]
+    for name in ("trace", "rng_tea", "rng_table"):
+        results[name]["sponzoid_launches"] = launches[name]
     static_prof = profile_frames(eng, "sponzoid")
 
     node = int(np.argmax([e - s for s, e in inst.prim_ranges]))
@@ -1405,7 +1493,7 @@ def phase_denoised_main_path(dev, results, city, card):
 
     t_phase = time.perf_counter()
     eng = Engine(city, W, H, denoised_settings(), flythrough_pose(0), CLEAR)
-    per_frame = hybrid_launches(HYBRID_DEPTH, True)
+    per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(eng.settings)}
     best, launches, final = drive_engine(eng, per_frame, "denoised", pose=flythrough_pose)
     for name in ("trace", "shade", "shade_albedo"):
         results[name]["denoised_launches"] = launches[name]
@@ -1611,7 +1699,9 @@ def phase_alpha(dev, results, city, card):
     eng = Engine(with_alpha(city), W, H, hybrid, orbit_camera(**CITY_CAM), CLEAR)
     if not isinstance(eng.tracer, AlphaTracer):
         raise AssertionError("the alpha city did not get the alpha tracer")
-    best, launches, _ = drive_engine(eng, per, "alpha", batches_n=1)
+    # the 5 alpha-tested traces a frame of alpha_launches
+    best, launches, _ = drive_engine(eng, {**per, **rng_launches(hybrid, alpha_traces=5)},
+                                     "alpha", batches_n=1)
     results["trace"]["alpha_launches"] = launches["trace"]
     profile = profile_frames(eng, "alpha")
     log(f"[alpha] hybrid alpha city {W}x{H} ({card}): {best[0]:.4f} ms/frame, "
@@ -2802,6 +2892,7 @@ def main() -> int:
     for name, phase in (("2-3 kernels",
                          lambda: pools.update(shadow=phase_kernels(dev, results))),
                         ("3b albedo kernel", lambda: phase_albedo(dev, results, city)),
+                        ("3c rng kernels", lambda: phase_rng(dev, results)),
                         ("4 main path", lambda: phase_main_path(dev, results)),
                         ("4b city main path", lambda: phase_city_main_path(dev, results,
                                                                            city.scene)),

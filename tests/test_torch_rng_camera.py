@@ -1,5 +1,10 @@
 """Port vs JAX package: the RNG (bit-exact) and the camera (permutations
-exact, rays to 1e-6)."""
+exact, rays to 1e-6). The RNG's dispatch: CPU calls keep the int64 path,
+card calls hand the kernels of ``csrc/rng.cu`` their host integers, whose
+constants are this path's."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -8,6 +13,7 @@ import torch
 
 import vkrt_tpu.ops.rng as jrng
 import vkrt_tpu.utils.camera as jcam
+import vkrt_tpu_torch.ops.cuda.rng as crng
 import vkrt_tpu_torch.ops.rng as trng
 import vkrt_tpu_torch.utils.camera as tcam
 
@@ -77,6 +83,95 @@ def test_corr_tables_bit_exact(corr_seed, depth):
         trng.corr_draws(n, corr_seed, depth).numpy(),
         np.asarray(jrng.corr_draws(n, jnp.uint32(corr_seed), depth)),
     )
+
+
+def test_rng_cu_constants_are_the_plain_paths():
+    src = (Path(trng.__file__).resolve().parents[1] / "csrc" / "rng.cu").read_text()
+    got = {name: int(v, 0) for name, v in
+           re.findall(r"constexpr uint32_t (k\w+) = (0x[0-9A-Fa-f]+|\d+)u;", src)}
+    assert got == {
+        "kTeaDelta": trng.TEA_DELTA,
+        **{f"kTeaKey{i}": k for i, k in enumerate(trng.TEA_KEYS)},
+        "kLcgA": trng._LCG_A, "kLcgC": trng._LCG_C, "kDepthKey": trng.DEPTH_KEY,
+    }
+    assert got["kLcgA"] == 1664525 and got["kLcgC"] == 1013904223
+    assert got["kDepthKey"] == 0x85EBCA6B and got["kTeaDelta"] == 0x9E3779B9
+    assert f"kDraws = {trng.CORR_DRAWS};" in src
+    assert crng.LANE_COLS == trng.CORR_DRAWS
+
+
+def test_cpu_calls_keep_the_int64_path(monkeypatch):
+    def refuse(*args, **kw):
+        raise AssertionError("a CPU call reached the CUDA wrapper")
+
+    monkeypatch.setattr(crng, "tea", refuse)
+    monkeypatch.setattr(crng, "table", refuse)
+    a = _values(4)
+    want = np.asarray(jrng.tea(jnp.asarray(a), jnp.uint32(5), rounds=8))
+    np.testing.assert_array_equal(_u32(trng.tea(torch.from_numpy(a.view(np.int32)), 5, 8)), want)
+    # a tensor seed is the plain version's on the CPU, the named plain call the same
+    np.testing.assert_array_equal(
+        _u32(trng.tea(torch.from_numpy(a.view(np.int32)), torch.tensor(5), 8)), want)
+    np.testing.assert_array_equal(_u32(trng.tea_plain(torch.from_numpy(a), 5, 8)), want)
+    trng.seed_pixels(40, 24, 3)
+    for device in (None, "cpu", torch.device("cpu")):
+        np.testing.assert_array_equal(
+            _u32(trng.block_table_rep(13, 7, 2, device=device)),
+            _u32(trng.block_uniform_table_plain(13, torch.tensor(7), 2, device=device)))
+        np.testing.assert_array_equal(
+            _u32(trng.corr_draws(3 * 1024 + 77, 7, 2, device=device)),
+            _u32(trng.corr_draws_plain(3 * 1024 + 77, 7, 2, device=device)))
+
+
+def test_card_dispatch_passes_host_ints_as_scalars(monkeypatch):
+    seen = []
+
+    def tea(val0, val1, rounds):
+        seen.append(("tea", val1, rounds))
+        return val0
+
+    def table(*args, **kw):
+        seen.append(("table", args, kw))
+
+    # the CPU stands in for the card: only the device of the decision is replaced
+    real = trng._on_card
+    monkeypatch.setattr(trng, "_on_card", lambda device, seed: real("cuda", seed))
+    monkeypatch.setattr(crng, "tea", tea)
+    monkeypatch.setattr(crng, "table", table)
+    ids = torch.arange(10)
+    trng.tea(ids, 5)
+    trng.tea(ids.to(torch.int32), 0xFFFFFFFF, rounds=8)
+    trng.seed_pixels(4, 3, 9)
+    trng.block_table_rep(13, 0xFFFFFFFF, 3, device="cpu")
+    trng.corr_draws(3 * 1024 + 77, 9, 66, device="cpu")
+    trng.corr_draws(250, 9, 1, block=100, device="cpu")
+    assert seen == [
+        ("tea", 5, 16), ("tea", 0xFFFFFFFF, 8), ("tea", 9, 16),
+        ("table", (13, 0xFFFFFFFF, 3, "cpu"), {}),
+        ("table", (4, 9, 66, "cpu"), {"n_lanes": 3 * 1024 + 77, "block": 1024}),
+        ("table", (3, 9, 1, "cpu"), {"n_lanes": 250, "block": 100}),
+    ]
+    # on the card a tensor seed raises: no call falls back to the int64 rounds
+    for call in (lambda: trng.tea(ids, torch.tensor(5)),
+                 lambda: trng.block_table_rep(13, torch.tensor(5), 3, device="cpu"),
+                 lambda: trng.corr_draws(250, torch.tensor(5), 1, device="cpu")):
+        with pytest.raises(TypeError, match="host integer"):
+            call()
+    assert len(seen) == 6
+
+
+def test_card_decision_and_wrapper_checks():
+    assert trng._on_card("cuda", 5) and trng._on_card(torch.device("cuda", 0), np.uint32(5))
+    assert not trng._on_card("cpu", 5) and not trng._on_card(None, 5)
+    assert not trng._on_card("cpu", torch.tensor(5))
+    with pytest.raises(TypeError, match="host integer"):
+        trng._on_card("cuda", torch.tensor(5))
+    with pytest.raises(ValueError, match="CUDA"):
+        crng.tea(torch.arange(3), 1, 16)
+    with pytest.raises(TypeError, match="int64 or int32"):
+        crng.tea(torch.arange(3.0), 1, 16)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        crng.table(4, 1, 0, "cpu")
 
 
 @pytest.mark.parametrize("w,h", [(64, 48), (96, 40), (50, 37)])

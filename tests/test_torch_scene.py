@@ -171,5 +171,5 @@ def test_port_imports_no_jax():
                  "models.post", "models.denoiser", "ops.alpha", "utils.metrics",
                  "scene_instances", "utils.sponzoid", "utils.profiling", "utils.checkpoint",
                  "benchmarks.suite", "parallel.mesh", "parallel.render", "parallel.dryrun",
-                 "bvh.lbvh", "ops.sort_rays", "bench", "entry", "benchmarks.accuracy"):
+                 "bvh.lbvh", "ops.sort_rays", "bench", "entry", "benchmarks.accuracy", "ops.cuda.rng"):
         assert f"vkrt_tpu_torch.{name}" in names, name

@@ -39,6 +39,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
+_U = ctypes.c_uint32
 
 # argtypes of every C entry point, in the order of its parameters
 _SIGNATURES = {
@@ -107,6 +108,16 @@ _SIGNATURES = {
     ],
     "vkrt_trace_variant_info": [  # variant; out: registers, shared, local, blocks per SM
         _I, ctypes.POINTER(_I),
+    ],
+    "vkrt_rng_tea": [
+        _P, _I, _U,          # val0, val0 is int64 (else int32), val1
+        _I, _I, _P,          # rounds, n, out (n,) int32 bits
+        _P,                  # stream
+    ],
+    "vkrt_rng_table": [
+        _U, _U, _I,          # corr_seed, depth, rows
+        _P, _P, _I, _I,      # out table (rows, 8) or null, out lanes (n, 6) or null, n, block
+        _P,                  # stream
     ],
 }
 
