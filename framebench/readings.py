@@ -2,7 +2,10 @@
 the program's check numbers over many seeds (each a short window at the
 cell's own size, as many (pixel, frame) pairs compared as a run compares),
 and the control's (the reference in bfloat16 in the program's place) on the
-first ``--control`` seeds. Not part of a benchmark run.
+first ``--control`` seeds. Not part of a benchmark run. A cell whose
+camera moves or that denoises is read as ``framebench.run`` checks it: each
+seed starts a fresh history at the seed's first pose, and one check frame
+after the window is compared (``check.Reference.step``).
 
     python -m framebench.readings --workload <cell> --seconds 8 --control 3 \
         --seeds 11 12 13 ...
@@ -19,7 +22,7 @@ import torch
 
 from framebench import check, scenes
 from framebench.cells import make_engine, resolve
-from framebench.run import frame_start
+from framebench.run import check_frame, frame_start, poses, renderer
 
 
 def main(argv=None) -> int:
@@ -40,18 +43,43 @@ def main(argv=None) -> int:
     ref = check.Reference(cell, inp, "cuda")
     ctrl = check.Reference(cell, inp, "cuda", torch.bfloat16) if args.control else None
     for i, seed in enumerate(args.seeds):
+        pose_at = poses(cell, seed)
+        render = renderer(engine, pose_at)
+        if check.stepwise(cell):  # a run's build frame, from a fresh history
+            for t in engine.denoise_state or ():
+                t.zero_()
+            render()
         engine.frame = frame_start(seed) - 1
         engine.accum.zero_()
         engine.accum_rt.zero_()
         frames = []
         t0 = time.perf_counter()
         for _ in range(int(cell.traffic["warmup_frames"])):
-            engine.render_frame()
+            render()
             frames.append(engine.frame)
         while time.perf_counter() - t0 < args.seconds:
-            out = engine.render_frame()
+            out = render()
             frames.append(engine.frame)
         torch.cuda.synchronize()
+        if check.stepwise(cell):
+            program, pose, inputs = check_frame(engine, cell, seed, render, pose_at, frames[-1])
+            t1 = time.perf_counter()
+            want = ref.posed(pose).step(**inputs)
+            err = check.pixel_errors(program[0], want[0].cpu())
+            row = {"seed": seed, "frames": len(frames), "pixels": len(inputs["centres"]),
+                   "footprint": len(inputs["footprint"]),
+                   "program": check.step_numbers(program, want),
+                   "reference_s": time.perf_counter() - t1,
+                   "largest_pixel_errors": sorted(err.tolist())[-5:],
+                   "pixels_over": {f"{t:g}": int((err > t).sum())
+                                   for t in (1e-6, 1e-4, 1e-3, 1e-2)}}
+            if i < args.control:
+                got = ctrl.posed(pose).step(**inputs)
+                row["control"] = check.step_numbers(
+                    (got[0].float().cpu(),
+                     got[1] and {k: v.float().cpu() for k, v in got[1].items()}), want)
+            print(json.dumps(row), flush=True)
+            continue
         pids = check.draw_pixels(seed, cell.width * cell.height,
                                  check.sample_count(len(frames)))
         program = out[torch.as_tensor(pids, device=out.device)].float().cpu()

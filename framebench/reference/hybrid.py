@@ -11,6 +11,10 @@ direct PBR sum), ``ops/texture.py`` (``build_mip_pyramid``,
 72, visibility from t 0.1, the GI lobe and the chain from depth 1) and
 ``models/post.py::composite``. The G-buffer does not depend on the frame,
 so it is computed once a pixel; the effects run on (frame, pixel) lanes.
+For the denoiser (``reference/denoise.py``), ``effects_gi`` also returns
+the GI radiance and its hit distance, and ``denoiser_inputs`` packs them
+with the G-buffer's normal, depth and position as ``models/hybrid.py``
+hands them to ``models/denoiser.py`` (commit 3c30f64).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from framebench.reference import denoise as ref_dn
 from framebench.reference import render
 from framebench.reference import shade as sh
 from framebench.reference.bvh import T_MAX, T_MIN
@@ -262,6 +267,15 @@ def effects(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: int
             use_shadows=True, use_ao=True, use_gi=True, clamp_weights=False):
     """(N, 4) RT colour of (pixel, frame) lanes; ``g`` holds the lanes'
     G-buffer rows."""
+    return effects_gi(scn, walk, g, cam, width, height, pid, frame, depth=depth, corr=corr,
+                      use_shadows=use_shadows, use_ao=use_ao, use_gi=use_gi,
+                      clamp_weights=clamp_weights)[0]
+
+
+def effects_gi(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: int,
+               corr: bool, use_shadows=True, use_ao=True, use_gi=True, clamp_weights=False):
+    """``effects`` and what the denoiser takes of them: (RT colour (N, 4),
+    GI radiance (N, 3), 0 off the G-buffer, GI hit distance (N,))."""
     dt = scn.tri_v0.dtype
     n = pid.shape[0]
     n_lights = scn.light_pos.shape[0]
@@ -314,6 +328,7 @@ def effects(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: int
                              0.0).sum(dim=0).to(dt)
             color_a = torch.where(shaded, color_a * (1.0 - ao), color_a)
     color_rgb = torch.zeros((n, 3), dtype=dt, device=pid.device)
+    hit_dist = torch.zeros(n, dtype=dt, device=pid.device)
     if use_gi:
         ratio = g.metalness * (1.0 - g.roughness)
         is_diffuse = ratio < 0.8
@@ -326,16 +341,52 @@ def effects(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: int
         dir_d = sh.normalize(sh._hemisphere(r1, r2, tangent, binormal, nrm))
         eye = cam[0][:3, 3]
         dir_s = sh.normalize(sh.reflect(-sh.normalize(eye - pos), nrm))
-        gi = render.bounce_loop(
+        gi, hit_dist = render.bounce_loop(
             scn, walk, pos, torch.where(is_diffuse[:, None], dir_d, dir_s),
             torch.where(is_diffuse, seed_d, seed),
             torch.where(is_diffuse[:, None], g.albedo, 1.0), shaded, ~is_diffuse,
             depth=depth, start_depth=1, block=block, cseed=cseed, corr=corr,
-            clear_color=(0.0, 0.0, 0.0, 0.0), clamp_weights=clamp_weights)
+            clear_color=(0.0, 0.0, 0.0, 0.0), clamp_weights=clamp_weights, hit_dist=True)
         color_rgb = torch.where(shaded[:, None], gi, 0.0)
     color = torch.cat([color_rgb, color_a[:, None]], dim=-1)
     background = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt, device=pid.device)
-    return torch.where(shaded[:, None], color, background)
+    return torch.where(shaded[:, None], color, background), color_rgb, hit_dist
+
+
+def view_matrices(eye, center, fov_deg, width, height, device, dtype=torch.float32):
+    """(view, view_proj) of a pose, rounded to f32 and carried in ``dtype``:
+    the G-buffer's depth and the reprojection's projection."""
+    view = render.look_at(eye, center, (0.0, 1.0, 0.0))
+    proj = render.perspective_vk(fov_deg, width / float(height))
+
+    def t(m):
+        return torch.tensor(np.asarray(m, np.float32), device=device).to(dtype)
+
+    return t(view), t(proj @ view)
+
+
+class DenoiserInputs(NamedTuple):
+    """What the hybrid frame hands its denoiser, one row a pixel."""
+    diff_rad_hitd: torch.Tensor  # (K, 4) packed GI radiance (YCoCg) and hit distance
+    norm_rough: torch.Tensor     # (K, 4) packed normal, roughness, material slot
+    view_z: torch.Tensor         # (K,) depth in the view, 0 off the G-buffer
+    world_pos: torch.Tensor      # (K, 3) the G-buffer's position, 0 off it
+
+
+def denoiser_inputs(g: GBuffer, gi, hit_dist, view) -> DenoiserInputs:
+    """The denoiser's inputs from the G-buffer rows ``g`` and the GI of
+    ``effects_gi`` (models/hybrid.py, models/gbuffer.py: the NRD packing of
+    the GI radiance with its normalised hit distance and of the shading
+    normal with the roughness). The material slot packs 0: the denoiser
+    reads only the normal of that packing."""
+    pos = g.position
+    miss = (pos == 0.0).all(dim=-1) & (g.normal == 0.0).all(dim=-1)
+    vz = view[2, 0] * pos[:, 0] + view[2, 1] * pos[:, 1] + view[2, 2] * pos[:, 2] + view[2, 3]
+    view_z = torch.where(miss, 0.0, vz)
+    packed = ref_dn.pack_normal_roughness(g.normal, g.roughness, torch.zeros_like(g.roughness))
+    nh = ref_dn.norm_hit_dist(hit_dist, view_z, g.roughness)
+    return DenoiserInputs(ref_dn.pack_radiance(gi, nh),
+                          torch.where(miss[:, None], 0.0, packed), view_z, pos)
 
 
 def composite(raster_rgb, accum_rt):

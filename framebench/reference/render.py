@@ -83,15 +83,20 @@ def generate_rays(cam, width, height, jitter, pix):
 
 
 def bounce_loop(scn, walk, origin, direction, seed, cur_w, active, is_spec, *, depth: int,
-                start_depth: int, block, cseed, corr: bool, clear_color, clamp_weights=False):
+                start_depth: int, block, cseed, corr: bool, clear_color, clamp_weights=False,
+                hit_dist: bool = False):
     """``general_bounce_chain`` from ``start_depth`` on (N,) lanes; returns
-    the lanes' accumulated radiance (N, 3)."""
+    the lanes' accumulated radiance (N, 3), and with ``hit_dist`` also the
+    denoiser's hit distance (N,): at depth 1, on a diffuse hit, the light's
+    distance, halved where its shadow ray is blocked (rgen:103-114, the
+    hybrid's overwrite), else 0."""
     dt = scn.tri_v0.dtype
     n = origin.shape[0]
     lo, hi = sh.clamp_bounds(clamp_weights)
     clear3 = torch.tensor([float(c) for c in clear_color[:3]], dtype=dt, device=origin.device)
     light_dist = torch.zeros(n, dtype=dt, device=origin.device)
     hit_value = torch.zeros((n, 3), dtype=dt, device=origin.device)
+    hit_dists = torch.zeros(n, dtype=dt, device=origin.device)
 
     def main_lim(act):
         return torch.where(act, T_MAX, -1.0).to(dt)
@@ -128,12 +133,15 @@ def bounce_loop(scn, walk, origin, direction, seed, cur_w, active, is_spec, *, d
         shadow_hit = shadow_hit & do_shadow
         contrib = torch.clamp_max(hv_this * cur_w, 10.0)
         hit_value = hit_value + torch.where((active & ~shadow_hit)[:, None], contrib, 0.0)
+        if d == 1:
+            hit_dists = torch.where(do_shadow, torch.where(shadow_hit, 0.5 * ld_this, ld_this),
+                                    hit_dists)
         step_w = torch.clamp_max(torch.clamp_min(bs.weight, lo), hi)
         cur_w = cur_w * torch.where(miss[:, None], 1.0, step_w)
         direction = torch.where(miss[:, None], direction, bs.next_dir)
         seed = torch.where(miss, seed, bs.seed)
         active, is_spec, light_dist, hits = active_next, spec_this, ld_this, hits_next
-    return hit_value
+    return (hit_value, hit_dists) if hit_dist else hit_value
 
 
 def path_samples(scn, walk, cam, width, height, pid, frame, *, depth: int, corr: bool,

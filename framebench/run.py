@@ -6,7 +6,10 @@
 Builds the cell's scene from the benchmark's own inputs, drives
 ``vkrt_tpu_torch.engine.Engine.render_frame`` through warm-up and then for
 ``--seconds`` of frames, checks the final image against the plain
-reference (``framebench/check.py``) and prints one JSON line last. With
+reference (``framebench/check.py``) and prints one JSON line last. A cell
+whose traffic moves the camera (``"camera": {"orbit_turns_per_frame": x}``)
+sets the engine's camera before each frame, and it or a denoised cell is
+checked on one more frame after the window (``check.Reference.step``). With
 ``--trace 0`` it reports the cell's end-to-end metrics, with ``--trace 1``
 its per-layer metrics from a profiled stretch of whole frames inside the
 window. It needs as many CUDA devices as the cell asks for and runs on
@@ -26,6 +29,8 @@ import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
+
+from framebench.cells import camera_pose  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -47,6 +52,77 @@ def frame_start(seed: int) -> int:
     session from frame 0 shows and the mix's weights 1/(frame+1) are a real
     session's."""
     return 1 + int(seed) % START_FRAMES
+
+
+def poses(cell, seed: int):
+    """Call j of ``render_frame`` in a run (j = 0 the build frame) -> its
+    camera pose (eye, center, fov_deg), or None for a static camera. An
+    orbit advances ``orbit_turns_per_frame`` a call from the config's orbit
+    parameter plus the seed's start frame's worth: the seed picks the start
+    pose, and every pose follows from it and the call's number."""
+    motion = cell.traffic.get("camera", "static")
+    if motion == "static":
+        return None
+    cam = cell.config["camera"]
+    if "orbit" not in cam or set(motion) != {"orbit_turns_per_frame"}:
+        raise ValueError(f"{cell.name}: camera motion {motion!r} needs an orbit camera and "
+                         "orbit_turns_per_frame alone")
+    turns, f0 = float(motion["orbit_turns_per_frame"]), frame_start(seed)
+    return lambda j: camera_pose({**cam, "orbit": float(cam["orbit"]) + (f0 + j) * turns})
+
+
+def renderer(engine, pose_at):
+    """``render()`` for calls 0, 1, ... of a run: ``engine.render_frame``
+    itself on a static camera, else the camera set to the call's pose and
+    then the frame (building the ``Camera`` is part of the frame, as for a
+    viewer). ``render.calls`` counts the calls."""
+    if pose_at is None:
+        return engine.render_frame
+    from vkrt_tpu_torch.utils.camera import Camera
+
+    def render():
+        eye, center, fov = pose_at(render.calls)
+        engine.camera = Camera(eye=eye, center=center, fov_deg=fov)
+        render.calls += 1
+        return engine.render_frame()
+
+    render.calls = 0
+    return render
+
+
+def check_frame(engine, cell, seed: int, render, pose_at, last_frame: int):
+    """Renders the check frame after the window and takes what its check
+    compares: (the program's image and new history at the compared pixels,
+    the pose, the reference's inputs: ``check.Reference.step``'s
+    arguments). The RT buffer at those pixels and the denoiser's whole history
+    are taken from the timed path just before the frame."""
+    import torch
+
+    from framebench import check
+    from framebench.reference import denoise as ref_dn
+    from framebench.reference.render import tile_position
+
+    centres, footprint = check.step_pixels(cell, seed)
+    ids = torch.as_tensor(centres, device=engine.device)
+    hybrid = cell.traffic["settings"].get("rt_mode", 0) == 0
+    buf = engine.accum_rt if hybrid else engine.accum  # in the engine's tile order
+    accum = buf[tile_position(ids, cell.width, cell.height)].float().cpu()
+    state = None
+    if check.denoises(cell) and engine.denoise_state is not None:
+        state = {f: getattr(engine.denoise_state, f).clone() for f in ref_dn.STATE}
+    moving = pose_at is not None
+    j = render.calls if moving else None
+    out = render()
+    image = out[ids].float().cpu()
+    new_state = None
+    if state is not None:
+        new_state = {f: getattr(engine.denoise_state, f)[ids].float().cpu()
+                     for f in ref_dn.STATE}
+    static = camera_pose(cell.config["camera"])
+    inputs = dict(centres=centres, footprint=footprint,
+                  frame=0 if moving else last_frame + 1,  # a pose change restarts at 0
+                  prev_pose=pose_at(j - 1) if moving else static, accum=accum, state=state)
+    return (image, new_state), (pose_at(j) if moving else static), inputs
 
 
 def _cache_dirs():
@@ -79,10 +155,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str, t0: floa
     from framebench import check, scenes
     from framebench.cells import make_engine
 
-    settings = cell.traffic["settings"]
-    if settings.get("use_denoiser") or cell.traffic.get("camera", "static") != "static":
-        raise NotImplementedError("the check has no reference of the denoiser or of a "
-                                  "moving camera yet")
     t0 = _T0 if t0 is None else t0
     cuda = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -91,17 +163,19 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str, t0: floa
     inp = scenes.make(cell.config["scene"]["generator"], cell.config["scene"],
                       os.path.join(cell.bench_dir, "assets"))
     engine = make_engine(cell, inp, device)
+    pose_at = poses(cell, seed)
+    render = renderer(engine, pose_at)
 
     # warm-up: frame 0 builds the kernels and the tree; then accumulation
     # restarts at the seed's frame, so only the RNG stream follows the seed
-    engine.render_frame()
+    render()
     f0 = frame_start(seed)
     engine.frame = f0 - 1
     engine.accum.zero_()     # path mode's buffer
     engine.accum_rt.zero_()  # hybrid mode's
     frames = []
     for _ in range(int(cell.traffic["warmup_frames"])):
-        engine.render_frame()
+        render()
         frames.append(engine.frame)
     sync()
     setup_s = time.time() - t0
@@ -124,9 +198,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str, t0: floa
             recorder.start()
         if recorder is not None and TRACE_FROM <= n < TRACE_FROM + n_trace:
             with torch.autograd.profiler.record_function("framebench.frame"):
-                out = engine.render_frame()
+                out = render()
         else:
-            out = engine.render_frame()
+            out = render()
         frames.append(engine.frame)
         if cuda:
             ev = torch.cuda.Event(enable_timing=True)
@@ -156,27 +230,43 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str, t0: floa
         f"{frames[0]}..{frames[-1]}, peak {peak} B")
 
     # the program's state goes before the reference runs
-    k = check.sample_count(len(frames))
-    pids = check.draw_pixels(seed, cell.width * cell.height, k)
-    program = out[torch.as_tensor(pids, device=out.device)].float().cpu()
-    del engine, out
-    if cuda:
-        torch.cuda.empty_cache()
-    t_ref = time.perf_counter()
-    ref = check.Reference(cell, inp, device)
-    reference = ref.image(pids, frames).cpu()
-    nums = check.numbers(program, reference)
+    if check.stepwise(cell):
+        program, pose, inputs = check_frame(engine, cell, seed, render, pose_at, frames[-1])
+        del engine, out
+        if cuda:
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter()
+        ref = check.Reference(cell, inp, device, pose=pose)
+        nums = check.step_numbers(program, ref.step(**inputs))
+        n_px = len(inputs["centres"])
+        what = f"{n_px} pixels of one frame (footprint {len(inputs['footprint'])})"
+        del inputs
+    else:
+        k = check.sample_count(len(frames))
+        pids = check.draw_pixels(seed, cell.width * cell.height, k)
+        program = out[torch.as_tensor(pids, device=out.device)].float().cpu()
+        del engine, out
+        if cuda:
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter()
+        ref = check.Reference(cell, inp, device)
+        reference = ref.image(pids, frames).cpu()
+        nums = check.numbers(program, reference)
+        n_px = len(pids)
+        what = f"{n_px} pixels x {len(frames)} frames"
     correct, lines = check.judge(nums, cell.limits)
-    log(f"[framebench] reference over {len(pids)} pixels x {len(frames)} frames "
-        f"in {time.perf_counter() - t_ref:.3f} s; rel_l1 {nums['rel_l1']!r}")
-    result.update(correct=correct, numbers=nums, check_lines=lines, pixels=len(pids))
+    log(f"[framebench] reference over {what} in {time.perf_counter() - t_ref:.3f} s; "
+        f"rel_l1 {nums['rel_l1']!r}")
+    result.update(correct=correct, numbers=nums, check_lines=lines, pixels=n_px)
 
     if recorder is not None:
         from framebench.profile import own_kernel_names, reduce_trace
         from framebench.roofline import Yardsticks, power_limit
 
         stretch = reduce_trace(recorder.events(), own_kernel_names(ROOT))
-        stretch.yard = Yardsticks(cell, ref)
+        # kernel A's yardstick walks the pose of the stretch's first frame
+        traced = pose_at(1 + int(cell.traffic["warmup_frames"]) + TRACE_FROM) if pose_at else None
+        stretch.yard = Yardsticks(cell, ref.posed(traced) if traced else ref)
         per_layer = {}
         for m in cell.per_layer:
             v = _load_reader(cell.bench_dir, m["name"])(stretch)

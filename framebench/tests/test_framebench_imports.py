@@ -39,3 +39,19 @@ def test_loaded_forbidden_compares_whole_names(monkeypatch):
     monkeypatch.setitem(sys.modules, "vkrt_tpu.fake", object())
     assert "vkrt_tpu" in loaded_forbidden()
     assert set(FORBIDDEN) == {"jax", "jaxlib", "flax", "vkrt_tpu"}
+
+
+def test_orbit_run_loads_no_jax(tiny_root):
+    """A whole run of the denoised orbit cell, in a process of its own,
+    leaves neither JAX nor the JAX package in ``sys.modules``."""
+    import subprocess
+
+    code = ("import sys; from framebench.cells import resolve; "
+            "from framebench.run import loaded_forbidden, run_cell; "
+            f"cell = resolve('cityorbit.hybrid-denoised-orbit', root={tiny_root!r}); "
+            "res = run_cell(cell, 5, 0.0, False, 'cpu', log=lambda *a: None); "
+            "print(res['correct'], loaded_forbidden())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=os.path.dirname(BENCH),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-2:] == ["True", "[]"], out.stdout

@@ -153,6 +153,17 @@ def test_broken_timed_path_is_not_correct(tiny_root, workload, kind, monkeypatch
     assert not res["correct"], res["numbers"]
 
 
+@pytest.mark.parametrize("kind", ["unchanged", "half", "altered"])
+def test_broken_orbit_is_not_correct(tiny_root, kind, monkeypatch):
+    """The faults of the timed path that a cell restarting its accumulation
+    every frame can have (the mix's weight is 1 there, so the two faults of
+    the mix change nothing)."""
+    cell = resolve("cityorbit.hybrid-denoised-orbit", root=tiny_root)
+    _break(monkeypatch, "hybrid", kind)
+    res = run_cell(cell, 77, 0.0, False, "cpu", log=_quiet)
+    assert not res["correct"], res["numbers"]
+
+
 @pytest.mark.parametrize("workload", ["citytiny.path-d4", "citytiny.hybrid-gi"])
 def test_lower_precision_control_is_not_correct(tiny_root, workload):
     """The reference in bfloat16 in the program's place fails the limit."""
