@@ -95,7 +95,8 @@ def program_scene(inp, device):
         np.asarray(m.base_color, np.float32), base_color_texture=m.base_tex,
         metallic_factor=m.metallic, roughness_factor=m.roughness,
         metallic_roughness_texture=m.mr_tex, normal_texture=m.normal_tex,
-        emissive_factor=np.asarray(m.emissive, np.float32), emissive_texture=m.emissive_tex)
+        emissive_factor=np.asarray(m.emissive, np.float32), emissive_texture=m.emissive_tex,
+        alpha_mode=m.alpha_mode, alpha_cutoff=m.alpha_cutoff)
         for m in inp.materials]
     lights = [gltf.GltfLight(np.asarray(lt.position, np.float32),
                              np.asarray(lt.color, np.float32), lt.intensity, lt.type)

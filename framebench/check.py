@@ -23,6 +23,13 @@ The control (``dtype=torch.bfloat16``) is the reference in the program's
 place, its samples computed in bfloat16 and mixed into an f32 buffer as
 the engine's is.
 
+**A cell whose traffic sets ``alpha_test``** on a scene with a MASK or
+BLEND material is rendered as the engine renders it: every trace of the
+path loop, the G-buffer, the shadow and AO pool and the GI chain goes
+through the reference's punch-through (``reference/alpha.py``) with the
+seeds the engine hands it. With ``alpha_test`` off, or on an opaque scene,
+the reference runs the plain walk alone.
+
 **A cell whose camera moves or that denoises** is checked one frame at a
 time (``Reference.step``): its image depends on the denoiser's history
 and, under motion, on a frame that restarts its accumulation at every
@@ -53,6 +60,7 @@ import copy
 import numpy as np
 import torch
 
+from framebench.reference import alpha as ref_alpha
 from framebench.reference import bvh as ref_bvh
 from framebench.reference import denoise as ref_dn
 from framebench.reference import hybrid as ref_hybrid
@@ -126,7 +134,10 @@ def _mix(accum, new, frame: int):
 
 class Reference:
     """The reference's tree and scene for one cell, built once; its camera
-    at ``pose`` (eye, center, fov_deg), by default the config's."""
+    at ``pose`` (eye, center, fov_deg), by default the config's. It traces
+    through the punch-through (``alpha``, ``reference/alpha.py``) where the
+    engine does: the traffic sets ``alpha_test`` and a material is MASK or
+    BLEND; else ``alpha`` is None and every trace is the plain walk."""
 
     def __init__(self, cell, inp, device, dtype=torch.float32, pose=None):
         self.cell, self.inp, self.device, self.dtype = cell, inp, device, dtype
@@ -134,6 +145,8 @@ class Reference:
         self.tree = ref_bvh.build_sah(inp.v0, inp.v1, inp.v2)
         self.walk = ref_bvh.Walk(self.tree, self.scn.tri_v0, self.scn.tri_e1,
                                  self.scn.tri_e2, device, dtype)
+        self.alpha = (ref_alpha.Tracer(self.scn, self.walk)
+                      if ref_alpha.enabled(cell.traffic["settings"], inp) else None)
         self.pose = pose or camera_pose(cell.config["camera"])
         self.cam = ref_render.camera(*self.pose, cell.width, cell.height, device, dtype)
 
@@ -166,7 +179,7 @@ class Reference:
         view, _ = ref_hybrid.view_matrices(*self.pose, w, h, self.device, self.dtype)
         atlas = ref_hybrid.build_atlas(self.inp, self.device) if hybrid else None
         common = dict(depth=int(s.get("depth", 3)), corr=bool(s.get("corr_sampler", True)),
-                      clamp_weights=bool(s.get("clamp_weights", False)))
+                      clamp_weights=bool(s.get("clamp_weights", False)), alpha=self.alpha)
         parts = []
         for i in range(0, pix.shape[0], chunk_lanes):
             pid = pix[i:i + chunk_lanes]
@@ -175,7 +188,8 @@ class Reference:
                 parts.append({"rt": ref_render.path_samples(
                     self.scn, self.walk, self.cam, w, h, pid, fr, clear_color=clear, **common)})
                 continue
-            g = ref_hybrid.gbuffer(self.scn, self.walk, atlas, self.cam, w, h, pid, clear)
+            g = ref_hybrid.gbuffer(self.scn, self.walk, atlas, self.cam, w, h, pid, clear,
+                                   alpha=self.alpha)
             rt, gi, hit = ref_hybrid.effects_gi(
                 self.scn, self.walk, g, self.cam, w, h, pid, fr,
                 use_shadows=bool(s.get("use_shadows", True)), use_ao=bool(s.get("use_ao", True)),
@@ -218,7 +232,8 @@ class Reference:
         k = pid.shape[0]
         if hybrid:
             atlas = ref_hybrid.build_atlas(self.inp, self.device)
-            g = ref_hybrid.gbuffer(self.scn, self.walk, atlas, self.cam, w, h, pid, clear)
+            g = ref_hybrid.gbuffer(self.scn, self.walk, atlas, self.cam, w, h, pid, clear,
+                                   alpha=self.alpha)
         per = max(1, chunk_lanes // k)
         out = []
         for i in range(0, len(frames), per):
@@ -226,7 +241,7 @@ class Reference:
             lanes_f = fr.repeat_interleave(k)
             lanes_p = pid.repeat(fr.shape[0])
             common = dict(depth=int(s.get("depth", 3)), corr=bool(s.get("corr_sampler", True)),
-                          clamp_weights=bool(s.get("clamp_weights", False)))
+                          clamp_weights=bool(s.get("clamp_weights", False)), alpha=self.alpha)
             if hybrid:
                 rows = ref_hybrid.GBuffer(*(x.repeat(fr.shape[0], *([1] * (x.dim() - 1)))
                                             for x in g))

@@ -9,8 +9,10 @@ direct PBR sum), ``ops/texture.py`` (``build_mip_pyramid``,
 ``sample_texture_lod``, ``sample_texture_aniso``, ``aniso_minor_lod``),
 ``models/hybrid.py::hybrid_effects`` (the shared-draw keys 64, 65-68 and
 72, visibility from t 0.1, the GI lobe and the chain from depth 1) and
-``models/post.py::composite``. The G-buffer does not depend on the frame,
-so it is computed once a pixel; the effects run on (frame, pixel) lanes.
+``models/post.py::composite``; where the cell's engine alpha-tests, every
+trace goes through ``reference/alpha.py``. The G-buffer does not depend on
+the frame, so it is computed once a pixel; the effects run on (frame,
+pixel) lanes.
 For the denoiser (``reference/denoise.py``), ``effects_gi`` also returns
 the GI radiance and its hit distance, and ``denoiser_inputs`` packs them
 with the G-buffer's normal, depth and position as ``models/hybrid.py``
@@ -195,13 +197,22 @@ class GBuffer(NamedTuple):
     metalness: torch.Tensor
 
 
-def gbuffer(scn, walk, atlas: Atlas, cam, width, height, pid, clear_color) -> GBuffer:
+def gbuffer(scn, walk, atlas: Atlas, cam, width, height, pid, clear_color,
+            alpha=None) -> GBuffer:
+    """The G-buffer rows of scanline pixels ``pid``. ``alpha``: a
+    ``reference.alpha.Tracer`` in the walk's place; the engine hands this
+    trace no seeds, so a lane's seed is its index in the engine's pool, the
+    whole frame in tile order: the pixel's tile position."""
     dt = scn.tri_v0.dtype
     n = pid.shape[0]
     pix = torch.stack([pid % width, pid // width], dim=-1).to(torch.float32)
     origin, direction = render.generate_rays(
         cam, width, height, torch.full((n, 2), 0.5, dtype=dt, device=pid.device), pix)
-    hits = walk.closest(origin, direction, torch.full((n,), T_MAX, dtype=dt, device=pid.device))
+    lim = torch.full((n,), T_MAX, dtype=dt, device=pid.device)
+    if alpha is None:
+        hits = walk.closest(origin, direction, lim)
+    else:
+        hits = alpha.closest(origin, direction, lim, render.tile_position(pid, width, height))
     u, v = hits.u.to(dt), hits.v.to(dt)
     tri = torch.clamp_min(hits.tri, 0)
     used = scn.slots_used
@@ -264,18 +275,22 @@ def gbuffer(scn, walk, atlas: Atlas, cam, width, height, pid, clear_color) -> GB
 
 
 def effects(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: int, corr: bool,
-            use_shadows=True, use_ao=True, use_gi=True, clamp_weights=False):
+            use_shadows=True, use_ao=True, use_gi=True, clamp_weights=False, alpha=None):
     """(N, 4) RT colour of (pixel, frame) lanes; ``g`` holds the lanes'
     G-buffer rows."""
     return effects_gi(scn, walk, g, cam, width, height, pid, frame, depth=depth, corr=corr,
                       use_shadows=use_shadows, use_ao=use_ao, use_gi=use_gi,
-                      clamp_weights=clamp_weights)[0]
+                      clamp_weights=clamp_weights, alpha=alpha)[0]
 
 
 def effects_gi(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: int,
-               corr: bool, use_shadows=True, use_ao=True, use_gi=True, clamp_weights=False):
+               corr: bool, use_shadows=True, use_ao=True, use_gi=True, clamp_weights=False,
+               alpha=None):
     """``effects`` and what the denoiser takes of them: (RT colour (N, 4),
-    GI radiance (N, 3), 0 off the G-buffer, GI hit distance (N,))."""
+    GI radiance (N, 3), 0 off the G-buffer, GI hit distance (N,)).
+    ``alpha``: a ``reference.alpha.Tracer`` in the walk's place: the
+    visibility pool traces with the seeds after the shadow and AO draws
+    under positive limits, the GI chain with its own (``render.bounce_loop``)."""
     dt = scn.tri_v0.dtype
     n = pid.shape[0]
     n_lights = scn.light_pos.shape[0]
@@ -316,8 +331,12 @@ def effects_gi(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: 
             lims.append(torch.where(shaded, RTAO_RADIUS, 0.0))
     if dirs:
         k = len(dirs)
-        hits = walk.closest(pos.repeat(k, 1), torch.cat(dirs), -torch.cat(lims).to(dt),
-                            t_min=SHADOW_T_MIN).hit.reshape(k, n)
+        if alpha is None:
+            hits = walk.closest(pos.repeat(k, 1), torch.cat(dirs), -torch.cat(lims).to(dt),
+                                t_min=SHADOW_T_MIN).hit.reshape(k, n)
+        else:
+            hits = alpha.closest(pos.repeat(k, 1), torch.cat(dirs), torch.cat(lims).to(dt), seed,
+                                 t_min=SHADOW_T_MIN).hit.reshape(k, n)
         seg = 0
         if use_shadows:
             vis = torch.clamp_min(torch.where(facing & ~(hits[0] & do_trace), 1.0, 0.0), 0.01)
@@ -346,7 +365,8 @@ def effects_gi(scn, walk, g: GBuffer, cam, width, height, pid, frame, *, depth: 
             torch.where(is_diffuse, seed_d, seed),
             torch.where(is_diffuse[:, None], g.albedo, 1.0), shaded, ~is_diffuse,
             depth=depth, start_depth=1, block=block, cseed=cseed, corr=corr,
-            clear_color=(0.0, 0.0, 0.0, 0.0), clamp_weights=clamp_weights, hit_dist=True)
+            clear_color=(0.0, 0.0, 0.0, 0.0), clamp_weights=clamp_weights, hit_dist=True,
+            alpha=alpha)
         color_rgb = torch.where(shaded[:, None], gi, 0.0)
     color = torch.cat([color_rgb, color_a[:, None]], dim=-1)
     background = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt, device=pid.device)

@@ -9,7 +9,8 @@ A frozen copy of the port's plain path (commit 400863e):
 lanes are (frame, pixel) pairs, so one call renders a pixel's samples of
 many frames; each lane finds its correlated draws from its frame and its
 pixel's 1024-lane block in tile order. The tracer is the benchmark's own
-SAH tree (``reference/bvh.py``).
+SAH tree (``reference/bvh.py``), alpha-tested by ``reference/alpha.py``
+where the cell's engine is.
 """
 
 from __future__ import annotations
@@ -84,12 +85,14 @@ def generate_rays(cam, width, height, jitter, pix):
 
 def bounce_loop(scn, walk, origin, direction, seed, cur_w, active, is_spec, *, depth: int,
                 start_depth: int, block, cseed, corr: bool, clear_color, clamp_weights=False,
-                hit_dist: bool = False):
+                hit_dist: bool = False, alpha=None):
     """``general_bounce_chain`` from ``start_depth`` on (N,) lanes; returns
     the lanes' accumulated radiance (N, 3), and with ``hit_dist`` also the
     denoiser's hit distance (N,): at depth 1, on a diffuse hit, the light's
     distance, halved where its shadow ray is blocked (rgen:103-114, the
-    hybrid's overwrite), else 0."""
+    hybrid's overwrite), else 0. ``alpha``: a ``reference.alpha.Tracer``
+    that traces in the walk's place, each trace with the seeds the lanes
+    hold when it starts (the shadow rays under positive limits)."""
     dt = scn.tri_v0.dtype
     n = origin.shape[0]
     lo, hi = sh.clamp_bounds(clamp_weights)
@@ -101,8 +104,14 @@ def bounce_loop(scn, walk, origin, direction, seed, cur_w, active, is_spec, *, d
     def main_lim(act):
         return torch.where(act, T_MAX, -1.0).to(dt)
 
-    hits = walk.closest(torch.where(active[:, None], origin, 1e30),
-                        torch.where(active[:, None], direction, 0.0), main_lim(active))
+    def closest(o, dd, lim, lane_seed):
+        if alpha is None:
+            return walk.closest(o, dd, lim)
+        return alpha.closest(o, dd, lim, lane_seed)
+
+    sh_sign = -1.0 if alpha is None else 1.0
+    hits = closest(torch.where(active[:, None], origin, 1e30),
+                   torch.where(active[:, None], direction, 0.0), main_lim(active), seed)
     for d in range(start_depth, depth):
         trace_next = d < depth - 1
         miss = (~hits.hit & active) | ~active
@@ -117,18 +126,18 @@ def bounce_loop(scn, walk, origin, direction, seed, cur_w, active, is_spec, *, d
         ld_this = torch.where(miss, light_dist, bs.light_dist)
         do_shadow = active & ~miss & ~spec_this
         sh_dir = torch.where(do_shadow[:, None], bs.shadow_dir, 0.0)
-        sh_lim = torch.where(do_shadow, -torch.clamp_min(ld_this - 0.1, T_MIN), 0.0)
+        sh_lim = torch.where(do_shadow, sh_sign * torch.clamp_min(ld_this - 0.1, T_MIN), 0.0)
         active_next = active & ~miss
         if trace_next:
-            res = walk.closest(
+            res = closest(
                 torch.cat([torch.where(active_next[:, None], surf.world_pos, 1e30),
                            surf.world_pos]),
                 torch.cat([torch.where(active_next[:, None], bs.next_dir, 0.0), sh_dir]),
-                torch.cat([main_lim(active_next), sh_lim]))
+                torch.cat([main_lim(active_next), sh_lim]), seed)
             hits_next = type(res)(*(x[:n] for x in res))
             shadow_hit = res.hit[n:]
         else:
-            shadow_hit = walk.closest(surf.world_pos, sh_dir, sh_lim).hit
+            shadow_hit = closest(surf.world_pos, sh_dir, sh_lim, seed).hit
             hits_next = hits
         shadow_hit = shadow_hit & do_shadow
         contrib = torch.clamp_max(hv_this * cur_w, 10.0)
@@ -145,9 +154,10 @@ def bounce_loop(scn, walk, origin, direction, seed, cur_w, active, is_spec, *, d
 
 
 def path_samples(scn, walk, cam, width, height, pid, frame, *, depth: int, corr: bool,
-                 clear_color, clamp_weights: bool = False):
+                 clear_color, clamp_weights: bool = False, alpha=None):
     """(N, 3) radiance of one sample at scanline pixel ``pid`` in frame
-    ``frame`` (both (N,) int64), in the scene's dtype."""
+    ``frame`` (both (N,) int64), in the scene's dtype. ``alpha``: see
+    ``bounce_loop``."""
     dt = scn.tri_v0.dtype
     dev = pid.device
     n = pid.shape[0]
@@ -162,7 +172,7 @@ def path_samples(scn, walk, cam, width, height, pid, frame, *, depth: int, corr:
         torch.ones(n, dtype=torch.bool, device=dev), torch.zeros(n, dtype=torch.bool, device=dev),
         depth=depth, start_depth=0, block=tile_position(pid, width, height) // sh.CORR_BLOCK,
         cseed=sh.corr_seed_for(frame), corr=corr, clear_color=clear_color,
-        clamp_weights=clamp_weights)
+        clamp_weights=clamp_weights, alpha=alpha)
 
 
 def accumulate(frames, samples, dtype=torch.float32):

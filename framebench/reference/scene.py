@@ -7,7 +7,10 @@ Mirrors the baking of ``vkrt_tpu_torch/scene.py`` (``_bake_primitive``,
 ``scene_arrays`` and ``ops/texture.py::srgb_to_linear``; commit 400863e):
 a soup gets flat normals and tangents from its uv gradients (Gram-Schmidt
 against +z, as the loader does with no vertex normals); a glTF mesh's own
-normals and tangents are renormalised in f64.
+normals and tangents are renormalised in f64. A material's alpha mode and
+cutoff are kept as given; the texture stack's alpha channel stays linear,
+as the program's does, for the punch-through's opacity
+(``reference/alpha.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ class RefScene(NamedTuple):
     mat_normal_tex: torch.Tensor
     mat_emissive: torch.Tensor
     mat_emissive_tex: torch.Tensor
+    mat_alpha_mode: torch.Tensor    # (M,) int32: 0 OPAQUE, 1 MASK, 2 BLEND
+    mat_alpha_cutoff: torch.Tensor  # (M,) in the scene's dtype
     light_pos: torch.Tensor
     light_color: torch.Tensor
     light_intensity: torch.Tensor
@@ -123,6 +128,8 @@ def build(inp, device, dtype=torch.float32) -> RefScene:
         mat_normal_tex=it([m.normal_tex for m in mats]),
         mat_emissive=fl([m.emissive for m in mats]),
         mat_emissive_tex=it([m.emissive_tex for m in mats]),
+        mat_alpha_mode=it([m.alpha_mode for m in mats]),
+        mat_alpha_cutoff=fl([m.alpha_cutoff for m in mats]),
         light_pos=fl([lt.position for lt in inp.lights]),
         light_color=fl([lt.color for lt in inp.lights]),
         light_intensity=fl([lt.intensity for lt in inp.lights]),

@@ -8,7 +8,9 @@ images. ``kind`` says how the program receives it: ``"soup"`` (its
 ``scene_from_soup`` constructor, flat normals and derived tangents) or
 ``"gltf"`` (its glTF loader, reading the asset that ``make`` wrote to
 ``path``). The plain reference (``framebench/reference``) derives its own
-tables from the same arrays.
+tables from the same arrays. A material's ``alpha_mode`` and
+``alpha_cutoff`` are glTF's: where a traffic file sets ``alpha_test``, the
+engine punches through MASK and BLEND hits (``reference/alpha.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ class Material:
     normal_tex: int = -1
     emissive: tuple = (0.0, 0.0, 0.0)
     emissive_tex: int = -1
+    alpha_mode: int = 0        # glTF alphaMode: 0 OPAQUE, 1 MASK, 2 BLEND
+    alpha_cutoff: float = 0.5  # MASK: opaque where alpha >= cutoff
 
 
 @dataclasses.dataclass

@@ -3,39 +3,23 @@
 normal maps, marble columns, and a rig of five KHR point lights.
 
 A frozen copy of ``vkrt_tpu_torch/utils/sponzoid.py::write_sponzoid`` in
-its PNG form, with its texture and geometry helpers and the PNG encoder of
-``vkrt_tpu_torch/utils/png.py`` (commit 400863e). The asset is written once
-into ``asset_dir`` (a marker names its parameters) for the program's glTF
-loader, and ``make`` returns the same arrays, expanded to triangles, for
-the reference. ``tess=4`` is 161,920 triangles.
+its PNG form, with its texture and geometry helpers (commit 400863e); the
+asset is written by ``scenes/gltf_asset.py``, which other generators share
+(``_generate``, ``materials`` and ``lights`` are theirs to build on). The
+asset is written once into ``asset_dir`` (a marker names its parameters)
+for the program's glTF loader, and ``make`` returns the same arrays,
+expanded to triangles, for the reference. ``tess=4`` is 161,920 triangles.
 """
 
 from __future__ import annotations
 
-import json
 import os
-import struct
-import zlib
 
 import numpy as np
 
-from framebench.scenes import Light, Material, SceneInput
+from framebench.scenes import Light, Material, SceneInput, gltf_asset
 
 _W, _H, _L = 20.0, 12.0, 60.0
-
-
-def _encode_png(img: np.ndarray) -> bytes:
-    """(H, W, 3|4) uint8 -> PNG bytes (filter 0)."""
-    h, w, c = img.shape
-
-    def chunk(ctype: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + ctype + data
-                + struct.pack(">I", zlib.crc32(ctype + data) & 0xFFFFFFFF))
-
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
-    scan = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
-            + chunk(b"IDAT", zlib.compress(scan.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
 def _normal_from_height(h, strength=2.0):
@@ -205,105 +189,33 @@ def _generate(tess: int, seed: int):
     return images, groups, light_z
 
 
-def _write(dir_path: str, images, groups, light_z) -> str:
-    os.makedirs(os.path.join(dir_path, "textures"), exist_ok=True)
-    for name, img in images.items():
-        with open(os.path.join(dir_path, "textures", f"{name}.png"), "wb") as f:
-            f.write(_encode_png(img))
-    bin_parts, views, accessors, primitives = [], [], [], []
-    offset = 0
-
-    def add_acc(arr, gl_type, comp):
-        nonlocal offset
-        data = np.ascontiguousarray(arr).tobytes()
-        data += b"\x00" * ((4 - len(data) % 4) % 4)
-        views.append({"buffer": 0, "byteOffset": offset, "byteLength": len(data)})
-        bin_parts.append(data)
-        offset += len(data)
-        acc = {"bufferView": len(views) - 1, "componentType": comp, "count": int(len(arr)),
-               "type": gl_type}
-        if gl_type == "VEC3" and comp == 5126:
-            acc["min"] = np.asarray(arr, np.float64).min(0).tolist()
-            acc["max"] = np.asarray(arr, np.float64).max(0).tolist()
-        accessors.append(acc)
-        return len(accessors) - 1
-
-    for mat, (pos, nrm, tan, uv, idx) in enumerate(groups):
-        primitives.append({
-            "attributes": {"POSITION": add_acc(pos, "VEC3", 5126),
-                           "NORMAL": add_acc(nrm, "VEC3", 5126),
-                           "TANGENT": add_acc(tan, "VEC4", 5126),
-                           "TEXCOORD_0": add_acc(uv, "VEC2", 5126)},
-            "indices": add_acc(idx, "SCALAR", 5125), "material": mat})
-    materials = []
-    for name, base, nmap, metal, rough in _MATERIALS:
-        m = {"name": name, "pbrMetallicRoughness": {"baseColorTexture": {"index": base},
-                                                    "metallicFactor": metal,
-                                                    "roughnessFactor": rough}}
-        if nmap >= 0:
-            m["normalTexture"] = {"index": nmap}
-        materials.append(m)
-    light_nodes = [{"translation": [0.0, _H - 2.5, float(z)],
-                    "extensions": {"KHR_lights_punctual": {"light": i}}}
-                   for i, z in enumerate(light_z)]
-    doc = {
-        "asset": {"version": "2.0", "generator": "framebench sponzoid"},
-        "scene": 0,
-        "scenes": [{"nodes": list(range(1 + len(light_nodes)))}],
-        "nodes": [{"mesh": 0}] + light_nodes,
-        "meshes": [{"primitives": primitives}],
-        "accessors": accessors, "bufferViews": views,
-        "buffers": [{"uri": "sponzoid.bin", "byteLength": offset}],
-        "images": [{"uri": f"textures/{n}.png", "name": n} for n in _IMAGES],
-        "samplers": [{}],
-        "textures": [{"source": i, "sampler": 0} for i in range(len(_IMAGES))],
-        "materials": materials,
-        "extensions": {"KHR_lights_punctual": {"lights": [
-            {"type": "point", "color": [1.0, 0.96, 0.9], "intensity": 600.0}
-            for _ in light_z]}},
-        "extensionsUsed": ["KHR_lights_punctual"],
-    }
-    with open(os.path.join(dir_path, "sponzoid.bin"), "wb") as f:
-        f.write(b"".join(bin_parts))
-    path = os.path.join(dir_path, "sponzoid.gltf")
-    with open(path, "w") as f:
-        json.dump(doc, f)
-    return path
+def materials():
+    """The hall's materials, (name, Material) in group order."""
+    return [(name, Material((1.0, 1.0, 1.0, 1.0), base_tex=base, metallic=metal,
+                            roughness=rough, normal_tex=nmap))
+            for name, base, nmap, metal, rough in _MATERIALS]
 
 
-def _rgba(img: np.ndarray) -> np.ndarray:
-    if img.shape[2] == 4:
-        return img
-    return np.concatenate([img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+def lights(light_z):
+    return [Light((0.0, _H - 2.5, float(z)), (1.0, 0.96, 0.9), 600.0, 0) for z in light_z]
 
 
 def make(params: dict, asset_dir: str) -> SceneInput:
     tess, seed = int(params["tess"]), int(params["seed"])
     images, groups, light_z = _generate(tess, seed)
+    mats, lts = materials(), lights(light_z)
     d = os.path.join(asset_dir, f"sponzoid_t{tess}_s{seed}")
     path = os.path.join(d, "sponzoid.gltf")
     marker = os.path.join(d, "complete")
     if not os.path.exists(marker):  # written once per checkout
-        _write(d, images, groups, light_z)
+        gltf_asset.write_gltf(d, "sponzoid", groups, mats,
+                              [(name, images[name]) for name in _IMAGES], lts)
         with open(marker, "w") as f:
             f.write("ok")
-    v, n, tg, uv, mat = [], [], [], [], []
-    for m, (pos, nrm, tan, tex, idx) in enumerate(groups):
-        tri = idx.astype(np.int64).reshape(-1, 3)
-        v.append(pos[tri])
-        n.append(nrm[tri])
-        tg.append(tan[tri])
-        uv.append(tex[tri])
-        mat.append(np.full(len(tri), m, np.int32))
-    v = np.concatenate(v).astype(np.float32)
-    mats = [Material((1.0, 1.0, 1.0, 1.0), base_tex=base, metallic=metal, roughness=rough,
-                     normal_tex=nmap) for _, base, nmap, metal, rough in _MATERIALS]
-    lights = [Light((0.0, _H - 2.5, float(z)), (1.0, 0.96, 0.9), 600.0, 0) for z in light_z]
+    v, n, tg, uv, mat = gltf_asset.triangles(groups)
     return SceneInput(
         kind="gltf", v0=v[:, 0].copy(), v1=v[:, 1].copy(), v2=v[:, 2].copy(),
-        uv=np.concatenate(uv).astype(np.float32), tri_mat=np.concatenate(mat),
-        materials=mats, lights=lights,
-        images=[_rgba(images[name]) for name in _IMAGES],
+        uv=uv, tri_mat=mat, materials=[m for _, m in mats], lights=lts,
+        images=[gltf_asset.rgba(images[name]) for name in _IMAGES],
         srgb=[i in (0, 2, 3, 5) for i in range(len(_IMAGES))],
-        normal=np.concatenate(n).astype(np.float32),
-        tangent=np.concatenate(tg).astype(np.float32), path=path)
+        normal=n, tangent=tg, path=path)
