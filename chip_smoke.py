@@ -33,6 +33,15 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    8,294,400-lane ``corr_draws`` view, bit for bit; each kernel's time, its
    bound and the plain path's device and host ms a call (the plain
    functions called by name: on the card the dispatch takes the kernels);
+3d. row T, the texel fetch's kernel (``csrc/texture.cu``) against the plain
+   PyTorch path on the card, bit for bit on every lane (non-finite ones
+   too), at the cells' shapes: the sponzoid's level-0 call (2560x1440
+   lanes, six 256x256 f32 images) and the city's trilinear and 4-tap
+   anisotropic calls (3840x2160 lanes, a bf16 atlas of three 64x64
+   images); each one launch, its time, its bound and the plain path's
+   device and host ms a call. Every main path (``drive_engine``) checks
+   that each texture call is one launch, and the counts a frame where
+   ``texture_launches`` gives them;
 4b. the city's main path (``benchmarks/suite.py`` row 3): ``Engine`` on
    ``make_city(grid=96)`` at 1280x720, spp 1, depth 4, correlated sampler
    on, that camera, clear (1,1,1,1) -- 2 warm-up frames, then 3 batches of
@@ -224,7 +233,11 @@ denoised fly-through's in ``denoised_launches``, as does ``shade_albedo``;
 main paths of phases 4, 4b and 4c in ``launches``, ``city_launches`` and
 ``hybrid_launches``, and on phase 4e's static sponzoid in
 ``sponzoid_launches``, each checked against ``rng_launches`` as the
-kernels' counts are against theirs; ``trace``'s ``alpha_launches`` counts
+kernels' counts are against theirs; ``tex_level0``, ``tex_trilinear`` and
+``tex_aniso`` count the texture launches of phases 4, 4c and 4e in
+``launches``, ``hybrid_launches`` and ``sponzoid_launches`` (``tex_aniso``
+also phase 4d's in ``denoised_launches``), each checked against
+``texture_launches``; ``trace``'s ``alpha_launches`` counts
 phase 5f's full-size alpha run, its ``sponzoid_launches`` and
 ``sponzoid_animated_launches`` phase 4e's static and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
 ``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card, and
@@ -240,6 +253,7 @@ phase 8's bench and anchor), the card's nvidia-smi line, and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -271,6 +285,11 @@ KERNELS = {
     "fma_peak": (CSRC + "probes.cu", "benchmarks/scratch/vpupeak.py:65"),
     "rng_tea": (CSRC + "rng.cu", "none (vkrt_tpu/ops/rng.py::tea, in XLA)"),
     "rng_table": (CSRC + "rng.cu", "none (vkrt_tpu/ops/rng.py::corr_draws, in XLA)"),
+    "tex_level0": (CSRC + "texture.cu", "none (vkrt_tpu/ops/texture.py::sample_texture, in XLA)"),
+    "tex_trilinear": (CSRC + "texture.cu",
+                      "none (vkrt_tpu/ops/texture.py::sample_texture_lod, in XLA)"),
+    "tex_aniso": (CSRC + "texture.cu",
+                  "none (vkrt_tpu/ops/texture.py::sample_texture_aniso, in XLA)"),
 }
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -291,6 +310,18 @@ SLAB_OPS, MT_OPS = 26, 52
 TEA_ROUND_OPS = 10
 # the cells' frame (framebench/configs/city-2160p.json)
 RNG_W, RNG_H = 3840, 2160
+# the sponzoid cell's frame (framebench/configs/sponzoid-1440p.json)
+SPONZOID_W, SPONZOID_H = 2560, 1440
+# FP32 instructions of the texel fetch a lane (csrc/texture.cuh, texture.cu),
+# counted from the source, each IEEE sqrt, division and log2 as one (an
+# optimistic bound): a bilinear fetch 62 (the wrap 4, the scale 4, the
+# half-texel shift 2, two floors, the weights 4, two casts, the mix 44);
+# a trilinear one two of those and 20 (the clamp, the level, the blend);
+# an anisotropic tap one trilinear and 11 (its offset, uv and the sum), and
+# 25 a lane around the taps (the footprint, the minor lod, the division)
+BILINEAR_OPS = 62
+TRILINEAR_OPS = 2 * BILINEAR_OPS + 20
+ANISO_TAP_OPS, ANISO_LANE_OPS = TRILINEAR_OPS + 11, 25
 PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
 
 
@@ -688,6 +719,106 @@ def phase_rng(dev, results):
         n * 6 * 4, g * row_ops, f"{n} lanes (N, 6)")
 
 
+def texture_lanes(dev, w: int, h: int, k: int, seed: int):
+    """A frame's coherent texture lanes, w x h pixels over ``k`` images:
+    uv a ramp across the frame (7.3 x 4.1 repeats, starting below 0), the
+    index one of ``k`` images or -1 (white) in 256-pixel tiles, the UV
+    derivatives a footprint whose size runs over 2^-4 .. 2^4 texels of a
+    64-texel image down the frame and whose direction turns across it; the
+    first 64 lanes non-finite or huge (a miss lane's derivatives, a uv at
+    infinity). Returns (idx int32, uv, lod, ddx, ddy) on ``dev``."""
+    import torch
+
+    y, x = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                          torch.arange(w, dtype=torch.float32), indexing="ij")
+    x, y = x.reshape(-1), y.reshape(-1)
+    uv = torch.stack([(x + 0.5) / w * 7.3 - 1.2, (y + 0.5) / h * 4.1 - 0.3], dim=-1)
+    tile = (x // 256).long() + 3 * (y // 256).long() + seed
+    idx = (tile % (k + 1) - 1).to(torch.int32)
+    size = torch.exp2((y + 0.5) / h * 8.0 - 4.0) / 64.0
+    ang = (x + 0.5) / w * 3.1416
+    ddx = torch.stack([size * torch.cos(ang), size * torch.sin(ang) * 0.3], dim=-1)
+    ddy = torch.stack([-size * torch.sin(ang) * 0.5, size * torch.cos(ang) * 0.2], dim=-1)
+    lod = (x + 0.5) / w * 10.0 - 2.0
+    odd = torch.tensor([float("nan"), float("inf"), -float("inf"), 3e38, -3e38, 0.0, -0.0,
+                        1e-30], dtype=torch.float32)
+    bad = odd[torch.arange(64) % odd.numel()]
+    uv[:64, 0], uv[:64, 1] = bad, bad.flip(0)
+    ddx[:64, 0], ddy[:64, 1], lod[:64] = bad, bad.roll(3), bad.roll(5)
+    return tuple(t.contiguous().to(dev) for t in (idx, uv, lod, ddx, ddy))
+
+
+def phase_texture(dev, results):
+    """Phase 3d (row T): the texel fetch's kernel (``csrc/texture.cu``) at
+    the cells' shapes against the plain PyTorch path on the card
+    (``sample_texture_plain`` and the rest called by name), bit for bit on
+    every lane: the sponzoid's level-0 call over six 256x256 f32 images at
+    2560x1440 lanes, and the city's trilinear and 4x anisotropic calls over
+    three 64x64 images' bf16 mip atlas at 3840x2160 lanes."""
+    import torch
+
+    from vkrt_tpu_torch.benchmarks import time_calls
+    from vkrt_tpu_torch.ops import texture as tex
+    from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
+
+    gen = np.random.default_rng(20)
+    imgs = [gen.integers(0, 256, (256, 256, 4), dtype=np.uint8) for _ in range(6)]
+    tex_rgba = torch.as_tensor(np.stack(imgs).astype(np.float32) / 255.0, device=dev)
+    tex_size = torch.full((6, 2), 256, dtype=torch.int32, device=dev)
+    atlas, lsize, loff, nlev = tex.pack_mip_atlas(
+        [gen.integers(0, 256, (64, 64, 4), dtype=np.uint8) for _ in range(3)], [True, False, True])
+    mip = (torch.as_tensor(atlas, device=dev).to(torch.bfloat16),
+           *(torch.as_tensor(a, device=dev) for a in (lsize, loff, nlev)))
+
+    def run(name, kernel, plain, n, lane_bytes, tables, instrs, what):
+        before = tex_cuda.launches[name]
+        got = kernel()
+        if tex_cuda.launches[name] != before + 1:
+            raise AssertionError(f"{name}: {tex_cuda.launches[name] - before} launches for one "
+                                 f"call")
+        check_equal(f"texture {name} {what}", (got.view(torch.int32),),
+                    (plain().view(torch.int32),))
+        ms = cuda_ms(kernel)
+        plain_ms, plain_host_ms = time_calls(plain, 3, dev)
+        b_ms, b_by = bound(n * lane_bytes + nbytes(*tables), instrs)
+        log(f"[texture] {name} {what}: kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{lane_bytes} B a lane), {ms / b_ms * 100:.1f}% of it; plain {plain_ms:.4f} device "
+            f"ms, {plain_host_ms:.4f} host ms a call; {int(torch.isnan(got).any(1).sum())} "
+            f"NaN lanes, equal bit for bit")
+        return {"ms": ms, "plain_ms": plain_ms, "plain_host_ms": plain_host_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "max_abs_err": 0.0,
+                "lanes": n}
+
+    n = SPONZOID_W * SPONZOID_H
+    idx, uv, _, _, _ = texture_lanes(dev, SPONZOID_W, SPONZOID_H, 6, 1)
+    results["tex_level0"] = run(
+        "level0", lambda: tex.sample_texture(tex_rgba, tex_size, idx, uv),
+        lambda: tex.sample_texture_plain(tex_rgba, tex_size, idx, uv), n, 8 + 4 + 16,
+        (tex_rgba, tex_size), n * BILINEAR_OPS,
+        f"{SPONZOID_W}x{SPONZOID_H} lanes, six 256x256 f32 images")
+    n = RNG_W * RNG_H
+    idx, uv, lod, ddx, ddy = texture_lanes(dev, RNG_W, RNG_H, 3, 2)
+    results["tex_trilinear"] = run(
+        "trilinear", lambda: tex.sample_texture_lod(*mip, idx, uv, lod),
+        lambda: tex.sample_texture_lod_plain(*mip, idx, uv, lod), n, 8 + 4 + 4 + 16, mip,
+        n * TRILINEAR_OPS, f"{RNG_W}x{RNG_H} lanes, a bf16 atlas of three 64x64 images")
+    results["tex_aniso"] = run(
+        "aniso",
+        lambda: tex.sample_texture_aniso(*mip, idx, uv, ddx, ddy, taps=4),
+        lambda: tex.sample_texture_aniso_plain(*mip, idx, uv, ddx, ddy, taps=4), n,
+        8 + 4 + 8 + 8 + 16, mip, n * (4 * ANISO_TAP_OPS + ANISO_LANE_OPS),
+        f"{RNG_W}x{RNG_H} lanes, 4 taps, the same atlas")
+
+
+def texture_launches(level0: int = 0, trilinear: int = 0, aniso: int = 0) -> dict:
+    """The texel fetch's launches a frame, one a ``sample_*`` call: on the
+    card kernel B fetches its own albedo, so the city path makes none, a
+    hybrid frame on the city one anisotropic G-buffer fetch, and the
+    sponzoid's general loop one level-0 fetch a used slot (baseColor and
+    the normal map) a bounce."""
+    return {"tex_level0": level0, "tex_trilinear": trilinear, "tex_aniso": aniso}
+
+
 def rng_launches(settings, alpha_traces: int = 0) -> dict:
     """The RNG kernels' launches a frame (``csrc/rng.cu``): one ``tea`` of
     the pixel seeds, and ``DEFAULT_ROUNDS`` more for each of
@@ -728,8 +859,11 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     """A main path: 2 warm-up frames, then ``batches_n`` batches of 8 frames
     timed with CUDA events, with the launch counters set to 0 just before
     and read just after. Each counter must grow by ``per_frame`` a frame
-    (keys trace, shade, shade_albedo, and rng_tea and rng_table of
-    ``rng_launches``). ``pose``: camera of the k-th frame
+    (keys trace, shade, shade_albedo, rng_tea and rng_table of
+    ``rng_launches``, and where given those of ``texture_launches``), and
+    the texel fetch's launches must equal its calls (the "texture" ranges
+    entered, counted through ``utils.profiling.pass_label``) on every path.
+    ``pose``: camera of the k-th frame
     of the warm-up or of a batch (a fly-through: ``eng.camera`` is set
     before each frame), None for a fixed camera. ``step``: called with the
     run's frame index before each frame (an animated scene's re-pose), its
@@ -738,10 +872,24 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     import torch
 
     from vkrt_tpu_torch.ops.cuda import rng as rng_cuda
+    from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
     from vkrt_tpu_torch.ops.cuda.shade import shade
     from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+    from vkrt_tpu_torch.utils import profiling
 
     count = [0]
+    tex_calls = {"open": 0, "calls": 0}
+    real_label = profiling.pass_label
+
+    @contextlib.contextmanager
+    def texture_range(name):
+        tex_calls["calls"] += tex_calls["open"] == 0
+        tex_calls["open"] += 1
+        try:
+            with real_label(name):
+                yield
+        finally:
+            tex_calls["open"] -= 1
 
     def frame(k):
         if pose is not None:
@@ -754,28 +902,35 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     trace_kernel.launches = trace_kernel.lanes = 0
     shade.launches = shade.albedo_launches = 0
     rng_cuda.tea.launches = rng_cuda.table.launches = 0
-    frames = 0
-    for k in range(2):  # warm-up
-        frame(k)
-        frames += 1
-    torch.cuda.synchronize()
-    batches = []
-    for _ in range(batches_n):
-        rays0 = eng.total_rays
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for k in range(8):
-            out = frame(k)
+    tex_cuda.reset()
+    profiling.pass_label = lambda name: (texture_range(name) if name == "texture"
+                                         else real_label(name))
+    try:
+        frames = 0
+        for k in range(2):  # warm-up
+            frame(k)
             frames += 1
-        end.record()
-        end.synchronize()
-        ms = start.elapsed_time(end)
-        rays = eng.total_rays - rays0
-        batches.append((ms / 8, rays / (ms * 1e-3) / 1e6, rays / 8))
+        torch.cuda.synchronize()
+        batches = []
+        for _ in range(batches_n):
+            rays0 = eng.total_rays
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for k in range(8):
+                out = frame(k)
+                frames += 1
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+            rays = eng.total_rays - rays0
+            batches.append((ms / 8, rays / (ms * 1e-3) / 1e6, rays / 8))
+    finally:
+        profiling.pass_label = real_label
     launches = {"trace": trace_kernel.launches, "shade": shade.launches,
                 "shade_albedo": shade.albedo_launches, "rng_tea": rng_cuda.tea.launches,
-                "rng_table": rng_cuda.table.launches}
+                "rng_table": rng_cuda.table.launches,
+                **{f"tex_{k}": v for k, v in tex_cuda.launches.items()}}
     for ms, mrays, rpf in batches:
         log(f"[{label}] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
     best = min(batches)
@@ -788,8 +943,12 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
         f"{frames} frames ({', '.join(f'{k} {v / frames:g}' for k, v in launches.items())} "
         f"a frame)")
     want = {k: v * frames for k, v in per_frame.items()}
-    if launches != want:
+    if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    tex_launches = sum(tex_cuda.launches.values())
+    if tex_launches != tex_calls["calls"]:
+        raise AssertionError(f"{tex_calls['calls']} texture calls made {tex_launches} texture "
+                             f"launches")
     accum = (eng.accum if s.rt_mode == 1 else eng.accum_rt).cpu().numpy()
     if not np.isfinite(accum).all():
         raise AssertionError(f"non-finite accum ({int((~np.isfinite(accum)).sum())} elements)")
@@ -866,8 +1025,9 @@ def phase_main_path(dev, results):
 
     eng = Engine(load_cornell(device=dev), W, H, path_settings(DEPTH), Camera(), CLEAR)
     best, launches, _ = drive_engine(
-        eng, {**path_launches(DEPTH, False), **rng_launches(eng.settings)}, "main")
-    for name in ("trace", "shade", "rng_tea", "rng_table"):
+        eng, {**path_launches(DEPTH, False), **rng_launches(eng.settings),
+              **texture_launches()}, "main")
+    for name in ("trace", "shade", "rng_tea", "rng_table", *texture_launches()):
         results[name]["launches"] = launches[name]
     results["main"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
                        "profile": profile_frames(eng, "main")}
@@ -884,7 +1044,8 @@ def phase_city_main_path(dev, results, city):
     log(f"[city] Engine on {city.num_tris} triangles (padded): set-up with its BVH "
         f"{time.perf_counter() - t0:.2f} s")
     best, launches, _ = drive_engine(
-        eng, {**path_launches(CITY_DEPTH, True), **rng_launches(eng.settings)}, "city")
+        eng, {**path_launches(CITY_DEPTH, True), **rng_launches(eng.settings),
+              **texture_launches()}, "city")
     results["shade_albedo"]["launches"] = launches["shade_albedo"]
     # the city path's own counts of kernels A and B (B's: all of them albedo
     # launches, so they equal shade_albedo's) and of the RNG kernels;
@@ -941,11 +1102,13 @@ def phase_hybrid_main_path(dev, results, city):
     settings = RenderSettings(samples=1, depth=HYBRID_DEPTH, rt_mode=0, use_shadows=True,
                               use_ao=True, use_gi=True, corr_sampler=True)
     eng = Engine(city, W, H, settings, orbit_camera(**CITY_CAM), CLEAR)
-    per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(settings)}
+    per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(settings),
+                 **texture_launches(aniso=1)}
     best, launches, _ = drive_engine(eng, per_frame, "hybrid")
     if not (launches["trace"] > 0 and launches["shade"] > 0):
         raise AssertionError(f"hybrid path launches {launches}")
-    for name in ("trace", "shade", "shade_albedo", "rng_tea", "rng_table"):
+    for name in ("trace", "shade", "shade_albedo", "rng_tea", "rng_table",
+                 *texture_launches()):
         results[name]["hybrid_launches"] = launches[name]
     profile = profile_frames(eng, "hybrid")
 
@@ -1066,9 +1229,10 @@ def phase_sponzoid(dev, results, card):
         f"{bvh0.nodes.shape[0]} child-box records, depth {bvh0.depth}")
     if kernel_shading_available(eng.scene):
         raise AssertionError("the sponzoid would take the packed loop, not the general loop")
-    per = {**general_launches(SPONZOID_DEPTH), **rng_launches(eng.settings)}
+    per = {**general_launches(SPONZOID_DEPTH), **rng_launches(eng.settings),
+           **texture_launches(level0=2 * SPONZOID_DEPTH)}
     static, launches, _ = drive_engine(eng, per, "sponzoid")
-    for name in ("trace", "rng_tea", "rng_table"):
+    for name in ("trace", "rng_tea", "rng_table", *texture_launches()):
         results[name]["sponzoid_launches"] = launches[name]
     static_prof = profile_frames(eng, "sponzoid")
 
@@ -1493,9 +1657,10 @@ def phase_denoised_main_path(dev, results, city, card):
 
     t_phase = time.perf_counter()
     eng = Engine(city, W, H, denoised_settings(), flythrough_pose(0), CLEAR)
-    per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(eng.settings)}
+    per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(eng.settings),
+                 **texture_launches(aniso=1)}
     best, launches, final = drive_engine(eng, per_frame, "denoised", pose=flythrough_pose)
-    for name in ("trace", "shade", "shade_albedo"):
+    for name in ("trace", "shade", "shade_albedo", "tex_aniso"):
         results[name]["denoised_launches"] = launches[name]
     final = final.cpu().numpy().astype(np.float64)
     last = flythrough_pose(FLY_FRAMES - 1)
@@ -2893,6 +3058,7 @@ def main() -> int:
                          lambda: pools.update(shadow=phase_kernels(dev, results))),
                         ("3b albedo kernel", lambda: phase_albedo(dev, results, city)),
                         ("3c rng kernels", lambda: phase_rng(dev, results)),
+                        ("3d texture kernels", lambda: phase_texture(dev, results)),
                         ("4 main path", lambda: phase_main_path(dev, results)),
                         ("4b city main path", lambda: phase_city_main_path(dev, results,
                                                                            city.scene)),

@@ -32,12 +32,15 @@
 // uv of the winner's corners, the material's baseColor texture, four float4
 // texel reads of level 0 with REPEAT wrap and GL_LINEAR weights, multiplied
 // into the base colour before the BSDF. Miss lanes fetch nothing, texture
-// index -1 is white. The uv and the bilinear weights are computed with
-// __fmul_rn / __fadd_rn in ops/texture.py's order, so no multiply-add is
-// contracted: a contracted u*w - 0.5 can move floor() across a texel edge.
+// index -1 is white. The uv is computed with __fmul_rn / __fadd_rn in
+// ops/texture.py's order, so no multiply-add is contracted; the wrap, the
+// four reads and the mix are texture.cuh's, which the texture kernels
+// (texture.cu) share.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "texture.cuh"
 
 namespace {
 
@@ -98,12 +101,6 @@ struct Albedo {
   int th, tw;               // the padded image size
 };
 
-// floor modulo for b > 0 (jnp.mod): -1 wraps to b - 1
-__device__ __forceinline__ int fmod_floor(int a, int b) {
-  const int r = a % b;
-  return r < 0 ? r + b : r;
-}
-
 // ops/texture.py::sample_texture at one lane, rgb only (-1: white)
 __device__ __forceinline__ V3 fetch_albedo(const Albedo& a, int mat, float u,
                                            float v, const float* cu) {
@@ -114,27 +111,9 @@ __device__ __forceinline__ V3 fetch_albedo(const Albedo& a, int mat, float u,
                              __fmul_rn(v, __fsub_rn(cu[4], cu[0])));
   const float vv = __fadd_rn(__fadd_rn(cu[1], __fmul_rn(u, __fsub_rn(cu[3], cu[1]))),
                              __fmul_rn(v, __fsub_rn(cu[5], cu[1])));
-  const int w = a.tex_size[2 * k], h = a.tex_size[2 * k + 1];
-  const float fx = __fsub_rn(__fmul_rn(__fsub_rn(uu, floorf(uu)), (float)w), 0.5f);
-  const float fy = __fsub_rn(__fmul_rn(__fsub_rn(vv, floorf(vv)), (float)h), 0.5f);
-  const float x0 = floorf(fx), y0 = floorf(fy);
-  const float ax = __fsub_rn(fx, x0), ay = __fsub_rn(fy, y0);
-  const float bx = __fsub_rn(1.0f, ax), by = __fsub_rn(1.0f, ay);
-  const int xi = (int)x0, yi = (int)y0;
-  const int xa = fmod_floor(xi, w), xb = fmod_floor(xi + 1, w);
-  const int64_t row = (int64_t)k * a.th;
-  const int64_t ra = (row + fmod_floor(yi, h)) * a.tw,
-                rb = (row + fmod_floor(yi + 1, h)) * a.tw;
-  const float4 c00 = a.tex[ra + xa], c10 = a.tex[ra + xb], c01 = a.tex[rb + xa],
-               c11 = a.tex[rb + xb];
-  auto mix4 = [&](float p00, float p10, float p01, float p11) {
-    return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(p00, bx), by),
-                                         __fmul_rn(__fmul_rn(p10, ax), by)),
-                               __fmul_rn(__fmul_rn(p01, bx), ay)),
-                     __fmul_rn(__fmul_rn(p11, ax), ay));
-  };
-  return {mix4(c00.x, c10.x, c01.x, c11.x), mix4(c00.y, c10.y, c01.y, c11.y),
-          mix4(c00.z, c10.z, c01.z, c11.z)};
+  const float4 c = vkrt_tex::bilinear(a.tex, (int64_t)k * a.th, a.tw, a.tex_size[2 * k],
+                                      a.tex_size[2 * k + 1], 0, uu, vv);
+  return {c.x, c.y, c.z};
 }
 
 template <bool kAlbedo>

@@ -119,6 +119,30 @@ _SIGNATURES = {
         _P, _P, _I, _I,      # out table (rows, 8) or null, out lanes (n, 6) or null, n, block
         _P,                  # stream
     ],
+    "vkrt_tex_level0": [
+        _P, _P, _I, _I,      # tex_rgba (K, TH, TW, 4) f32, tex_size (K, 2), TH, TW
+        _P, _I,              # index (N,), is int64 (else int32)
+        _P, _I, _P,          # uv (N, 2), n, out (N, 4) f32
+        _P,                  # stream
+    ],
+    "vkrt_tex_lod": [
+        _P, _I,              # atlas (K, TH, 2TW, 4), is bf16 (else f32)
+        _P, _P, _P, _I,      # level_size (K, L, 2), level_off (K, L), n_levels (K,), L
+        _I, _I,              # TH, 2TW
+        _P, _I,              # index (N,), is int64 (else int32)
+        _P, _P,              # uv (N, 2), lod (N,)
+        _I, _P,              # n, out (N, 4) f32
+        _P,                  # stream
+    ],
+    "vkrt_tex_aniso": [
+        _P, _I,              # atlas (K, TH, 2TW, 4), is bf16 (else f32)
+        _P, _P, _P, _I,      # level_size (K, L, 2), level_off (K, L), n_levels (K,), L
+        _I, _I,              # TH, 2TW
+        _P, _I,              # index (N,), is int64 (else int32)
+        _P, _P, _P,          # uv, ddx_uv, ddy_uv (N, 2) each
+        _I, _I, _P,          # taps, n, out (N, 4) f32
+        _P,                  # stream
+    ],
 }
 
 

@@ -41,9 +41,10 @@ import torch
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.models.shading import clamp_bounds
 from vkrt_tpu_torch.ops.rng import CORR_BLOCK, block_table_rep, rnd
-from vkrt_tpu_torch.ops.texture import sample_texture
+from vkrt_tpu_torch.ops.texture import sample_texture_plain
 from vkrt_tpu_torch.ops.trace import interp_corners
 from vkrt_tpu_torch.scene import SceneTensors, scene_base_only_textured, scene_is_textured
+from vkrt_tpu_torch.utils.profiling import pass_label
 
 M_PI = 3.14159265358979323846
 M_TWO_PI = 2.0 * M_PI
@@ -200,8 +201,12 @@ def shade_plain(carry, seed, rays, hit, sh_tri, scene: SceneTensors,
     tw = torch.where(is_hit, scene.corner_tangent[safe, 0, 3], 0.0)
     mat = torch.where(is_hit, scene.tri_mat[safe], 0).long()
     if p.albedo:  # hit lanes fetch the baseColor texel; miss lanes stay white
+        # by PyTorch gathers on every device: the kernel's fetch shares
+        # csrc/texture.cuh with the texture kernel, so that kernel is no check
         uv = interp_corners(scene.corner_uv, safe, hu, hv)
-        rgba = sample_texture(scene.tex_rgba, scene.tex_size, scene.mat_base_tex[mat], uv)
+        with pass_label("texture"):
+            rgba = sample_texture_plain(scene.tex_rgba, scene.tex_size,
+                                        scene.mat_base_tex[mat], uv)
         albedo = torch.where(is_hit[:, None], rgba[:, :3], 1.0)
 
     # --- surface frame -------------------------------------------------------

@@ -11,6 +11,12 @@ indices wrap with a floor modulo (``torch.remainder``: ``x0 = -1`` wraps to
 ``w - 1``; ``%`` on negative ints is not used), and the bilinear sum keeps
 its term order. Every fetch runs under the "texture" range of
 ``utils.profiling``.
+
+On the card each ``sample_*`` call is one launch of ``csrc/texture.cu``
+(``ops/cuda/texture.py``), held bit for bit to the PyTorch body. That body
+is the plain version (``sample_texture_plain``, ``sample_texture_lod_plain``,
+``sample_texture_aniso_plain``): every CPU call takes it, and the card's
+tests and ``chip_smoke.py`` call it by name.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import os
 import numpy as np
 import torch
 
+from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
 from vkrt_tpu_torch.utils.profiling import labelled
 
 # Anisotropic tap count, read and validated once at import. 4 matches the
@@ -74,6 +81,14 @@ def sample_texture(tex_rgba, tex_size, tex_idx, uv):
     """Bilinear REPEAT sample of level 0. ``tex_idx`` (N,) int (-1 =>
     white), ``uv`` (N, 2). Returns (N, 4) RGBA f32. Texel centres at
     half-integer coordinates (GL_LINEAR)."""
+    if uv.device.type == "cuda":
+        return tex_cuda.level0(tex_rgba, tex_size, tex_idx, uv)
+    return sample_texture_plain(tex_rgba, tex_size, tex_idx, uv)
+
+
+def sample_texture_plain(tex_rgba, tex_size, tex_idx, uv):
+    """``sample_texture`` in PyTorch gathers on any device: the plain
+    version."""
     k_all, th, tw, _ = tex_rgba.shape
     tex_flat = tex_rgba.reshape(k_all * th * tw, 4)
     k = torch.clamp_min(tex_idx, 0).long()
@@ -87,6 +102,14 @@ def sample_texture_lod(atlas, level_size, level_off, n_levels, tex_idx, uv, lod)
     """Trilinear mip sample (GL_LINEAR_MIPMAP_LINEAR). ``tex_idx`` (N,)
     (-1 => white), ``uv`` (N, 2), ``lod`` (N,) continuous level of detail.
     Returns (N, 4)."""
+    if uv.device.type == "cuda":
+        return tex_cuda.trilinear(atlas, level_size, level_off, n_levels, tex_idx, uv, lod)
+    return sample_texture_lod_plain(atlas, level_size, level_off, n_levels, tex_idx, uv, lod)
+
+
+def sample_texture_lod_plain(atlas, level_size, level_off, n_levels, tex_idx, uv, lod):
+    """``sample_texture_lod`` in PyTorch gathers on any device: the plain
+    version."""
     k_all, th, tw2, _ = atlas.shape
     tex_flat = atlas.reshape(k_all * th * tw2, 4)
     k = torch.clamp_min(tex_idx, 0).long()
@@ -136,6 +159,19 @@ def sample_texture_aniso(atlas, level_size, level_off, n_levels, tex_idx, uv,
     """4x anisotropic trilinear sample from screen-space UV derivatives
     (``ddx_uv``/``ddy_uv``: (N, 2) UV change per pixel step): the level
     from the minor axis, ``taps`` trilinear taps along the major axis."""
+    if taps is None:
+        taps = ANISO_TAPS
+    if uv.device.type == "cuda":
+        return tex_cuda.aniso(atlas, level_size, level_off, n_levels, tex_idx, uv, ddx_uv,
+                              ddy_uv, taps)
+    return sample_texture_aniso_plain(atlas, level_size, level_off, n_levels, tex_idx, uv,
+                                      ddx_uv, ddy_uv, taps)
+
+
+def sample_texture_aniso_plain(atlas, level_size, level_off, n_levels, tex_idx, uv,
+                               ddx_uv, ddy_uv, taps=None):
+    """``sample_texture_aniso`` in PyTorch gathers on any device: the plain
+    version."""
     px, py = _footprint(level_size, tex_idx, ddx_uv, ddy_uv)
     lod = _minor_lod(px, py)
     major = torch.where((px >= py)[:, None], ddx_uv, ddy_uv)
@@ -144,8 +180,8 @@ def sample_texture_aniso(atlas, level_size, level_off, n_levels, tex_idx, uv,
     offsets = {2: (-0.25, 0.25), 4: (-0.375, -0.125, 0.125, 0.375)}[taps]
     acc = 0.0
     for s in offsets:
-        acc = acc + sample_texture_lod(atlas, level_size, level_off, n_levels,
-                                       tex_idx, uv + major * s, lod)
+        acc = acc + sample_texture_lod_plain(atlas, level_size, level_off, n_levels,
+                                             tex_idx, uv + major * s, lod)
     return acc / len(offsets)
 
 
