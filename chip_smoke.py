@@ -258,6 +258,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -274,22 +275,34 @@ SMALL_CITY_GRID, SMALL_CITY_CAM = 8, dict(t=0.12, radius=25.0, height=4.0)
 # the denoised fly-through: benchmarks/suite.py row 5, 8 poses of an orbit
 FLY_FRAMES, FLY_CAM = 8, dict(radius=300.0, height=48.0)
 CSRC = "vkrt_tpu_torch/csrc/"
-# name -> (source, the TPU kernel it replaces)
+
+
+class Kernel(NamedTuple):
+    source: str
+    entry: str     # its row of vkrt_tpu_torch.device.counts
+    replaces: str  # the TPU kernel it replaces
+
+
 KERNELS = {
-    "trace": (CSRC + "trace.cu", "vkrt_tpu/ops/pallas/trace.py:1084"),
-    "shade": (CSRC + "shade.cu", "vkrt_tpu/ops/pallas/shade.py:179"),
-    "shade_albedo": (CSRC + "shade.cu", "vkrt_tpu/ops/pallas/shade.py:179 (albedo)"),
-    "floor": (CSRC + "probes.cu", "benchmarks/micro_trace.py:51"),
-    "trace_ablate": (CSRC + "trace_variants.cu", "benchmarks/scratch/ablate_kernel.py:95"),
-    "trace_variant": (CSRC + "trace_variants.cu", "benchmarks/scratch/variants.py:220"),
-    "fma_peak": (CSRC + "probes.cu", "benchmarks/scratch/vpupeak.py:65"),
-    "rng_tea": (CSRC + "rng.cu", "none (vkrt_tpu/ops/rng.py::tea, in XLA)"),
-    "rng_table": (CSRC + "rng.cu", "none (vkrt_tpu/ops/rng.py::corr_draws, in XLA)"),
-    "tex_level0": (CSRC + "texture.cu", "none (vkrt_tpu/ops/texture.py::sample_texture, in XLA)"),
-    "tex_trilinear": (CSRC + "texture.cu",
-                      "none (vkrt_tpu/ops/texture.py::sample_texture_lod, in XLA)"),
-    "tex_aniso": (CSRC + "texture.cu",
-                  "none (vkrt_tpu/ops/texture.py::sample_texture_aniso, in XLA)"),
+    "trace": Kernel(CSRC + "trace.cu", "vkrt_trace", "vkrt_tpu/ops/pallas/trace.py:1084"),
+    "shade": Kernel(CSRC + "shade.cu", "vkrt_shade", "vkrt_tpu/ops/pallas/shade.py:179"),
+    "shade_albedo": Kernel(CSRC + "shade.cu", "vkrt_shade.albedo",
+                           "vkrt_tpu/ops/pallas/shade.py:179 (albedo)"),
+    "floor": Kernel(CSRC + "probes.cu", "vkrt_floor", "benchmarks/micro_trace.py:51"),
+    "trace_ablate": Kernel(CSRC + "trace_variants.cu", "vkrt_trace_ablate",
+                           "benchmarks/scratch/ablate_kernel.py:95"),
+    "trace_variant": Kernel(CSRC + "trace_variants.cu", "vkrt_trace_variant",
+                            "benchmarks/scratch/variants.py:220"),
+    "fma_peak": Kernel(CSRC + "probes.cu", "vkrt_fma_peak", "benchmarks/scratch/vpupeak.py:65"),
+    "rng_tea": Kernel(CSRC + "rng.cu", "vkrt_rng_tea", "none (vkrt_tpu/ops/rng.py::tea, in XLA)"),
+    "rng_table": Kernel(CSRC + "rng.cu", "vkrt_rng_table",
+                        "none (vkrt_tpu/ops/rng.py::corr_draws, in XLA)"),
+    "tex_level0": Kernel(CSRC + "texture.cu", "vkrt_tex_level0",
+                         "none (vkrt_tpu/ops/texture.py::sample_texture, in XLA)"),
+    "tex_trilinear": Kernel(CSRC + "texture.cu", "vkrt_tex_lod",
+                            "none (vkrt_tpu/ops/texture.py::sample_texture_lod, in XLA)"),
+    "tex_aniso": Kernel(CSRC + "texture.cu", "vkrt_tex_aniso",
+                        "none (vkrt_tpu/ops/texture.py::sample_texture_aniso, in XLA)"),
 }
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -327,6 +340,20 @@ PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def by_kernel(by_entry: dict, names=tuple(KERNELS)) -> dict:
+    """Launches by ``device.counts`` row (a rank's gathered copy) under the
+    kernels' ``names`` of ``KERNELS``."""
+    return {k: by_entry[KERNELS[k].entry] for k in names}
+
+
+def launches_now(names=tuple(KERNELS)) -> dict:
+    """``by_kernel`` of the launches since the last
+    ``device.reset_counts()``."""
+    from vkrt_tpu_torch import device as kdev
+
+    return by_kernel({e: c["launches"] for e, c in kdev.counts.items()}, names)
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -504,7 +531,7 @@ def phase_kernels(dev, results):
     )
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer, trace_kernel
     from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-    from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
+    from vkrt_tpu_torch.ops.rng import block_uniform_table, rnd, tea
     from vkrt_tpu_torch.ops.trace import trace_rays_bruteforce, trace_rays_bvh_ordered
     from vkrt_tpu_torch.scene import load_cornell, make_random_soup
     from vkrt_tpu_torch.utils.camera import Camera, generate_rays, pixel_coords, tile_perm
@@ -564,7 +591,7 @@ def phase_kernels(dev, results):
     sh_tri = None
     for dd in range(2):
         hit = tracer.trace_block(rays)
-        tab = block_table_rep(n // 1024, corr_seed, dd, device=dev)
+        tab = block_uniform_table(n // 1024, corr_seed, dd, device=dev)
         args = (carry, seed, rays, hit, sh_tri, scene, mat_tab, light_tab, tab, params(dd))
         out = shade(*args)
         shade_errs.append(compare_shade(f"bounce {dd} 1280x720 corr", out, shade_plain(*args)))
@@ -620,7 +647,7 @@ def phase_albedo(dev, results, cb):
         ShadeParams, clamp_bounds, scene_tables, shade, shade_plain,
     )
     from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-    from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
+    from vkrt_tpu_torch.ops.rng import block_uniform_table, rnd, tea
     from vkrt_tpu_torch.scene import scene_base_only_textured
     from vkrt_tpu_torch.utils.camera import generate_rays, orbit_camera, pixel_coords, tile_perm
 
@@ -645,7 +672,7 @@ def phase_albedo(dev, results, cb):
     errs, sh_tri = [], None
     for dd in range(2):
         hit = tracer.trace_block(rays)
-        tab = block_table_rep(n // 1024, corr_seed_for(frame, 0), dd, device=dev)
+        tab = block_uniform_table(n // 1024, corr_seed_for(frame, 0), dd, device=dev)
         p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2, hitdist_weight=1.0,
                         hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX, clear=CLEAR[:3],
                         clamp_lo=lo, clamp_hi=hi, albedo=True)
@@ -710,7 +737,7 @@ def phase_rng(dev, results):
     # conversion and a multiply
     row_ops = 8 * TEA_ROUND_OPS + 6 * 4
     results["rng_table"] = run(
-        "table", lambda: rng.block_table_rep(g, corr_seed, 3, device=dev),
+        "table", lambda: rng.block_uniform_table(g, corr_seed, 3, device=dev),
         lambda: rng.block_uniform_table_plain(g, corr_seed, 3, device=dev),
         g * 8 * 4, g * row_ops, f"{g} rows (G, 8)")
     results["rng_table"]["lanes"] = run(
@@ -757,9 +784,9 @@ def phase_texture(dev, results):
     three 64x64 images' bf16 mip atlas at 3840x2160 lanes."""
     import torch
 
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.benchmarks import time_calls
     from vkrt_tpu_torch.ops import texture as tex
-    from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
 
     gen = np.random.default_rng(20)
     imgs = [gen.integers(0, 256, (256, 256, 4), dtype=np.uint8) for _ in range(6)]
@@ -771,11 +798,11 @@ def phase_texture(dev, results):
            *(torch.as_tensor(a, device=dev) for a in (lsize, loff, nlev)))
 
     def run(name, kernel, plain, n, lane_bytes, tables, instrs, what):
-        before = tex_cuda.launches[name]
+        count = kdev.counts[KERNELS[f"tex_{name}"].entry]
+        before = count["launches"]
         got = kernel()
-        if tex_cuda.launches[name] != before + 1:
-            raise AssertionError(f"{name}: {tex_cuda.launches[name] - before} launches for one "
-                                 f"call")
+        if count["launches"] != before + 1:
+            raise AssertionError(f"{name}: {count['launches'] - before} launches for one call")
         check_equal(f"texture {name} {what}", (got.view(torch.int32),),
                     (plain().view(torch.int32),))
         ms = cuda_ms(kernel)
@@ -857,8 +884,8 @@ def hybrid_launches(depth: int, albedo: bool) -> dict:
 def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3,
                  step=None):
     """A main path: 2 warm-up frames, then ``batches_n`` batches of 8 frames
-    timed with CUDA events, with the launch counters set to 0 just before
-    and read just after. Each counter must grow by ``per_frame`` a frame
+    timed with CUDA events, with ``device.counts`` set to 0 just before
+    and read just after. Each count must grow by ``per_frame`` a frame
     (keys trace, shade, shade_albedo, rng_tea and rng_table of
     ``rng_launches``, and where given those of ``texture_launches``), and
     the texel fetch's launches must equal its calls (the "texture" ranges
@@ -871,10 +898,7 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     rays/frame), launches, the last frame's image)."""
     import torch
 
-    from vkrt_tpu_torch.ops.cuda import rng as rng_cuda
-    from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.utils import profiling
 
     count = [0]
@@ -899,10 +923,7 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
         count[0] += 1
         return eng.render_frame()
 
-    trace_kernel.launches = trace_kernel.lanes = 0
-    shade.launches = shade.albedo_launches = 0
-    rng_cuda.tea.launches = rng_cuda.table.launches = 0
-    tex_cuda.reset()
+    kdev.reset_counts()
     profiling.pass_label = lambda name: (texture_range(name) if name == "texture"
                                          else real_label(name))
     try:
@@ -927,10 +948,7 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
             batches.append((ms / 8, rays / (ms * 1e-3) / 1e6, rays / 8))
     finally:
         profiling.pass_label = real_label
-    launches = {"trace": trace_kernel.launches, "shade": shade.launches,
-                "shade_albedo": shade.albedo_launches, "rng_tea": rng_cuda.tea.launches,
-                "rng_table": rng_cuda.table.launches,
-                **{f"tex_{k}": v for k, v in tex_cuda.launches.items()}}
+    launches = launches_now()
     for ms, mrays, rpf in batches:
         log(f"[{label}] batch: {ms:.4f} ms/frame, {mrays:.4f} Mrays/s, {rpf:.0f} rays/frame")
     best = min(batches)
@@ -945,7 +963,7 @@ def drive_engine(eng, per_frame: dict, label: str, pose=None, batches_n: int = 3
     want = {k: v * frames for k, v in per_frame.items()}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"launch counts {launches} != {want}")
-    tex_launches = sum(tex_cuda.launches.values())
+    tex_launches = sum(launches[k] for k in texture_launches())
     if tex_launches != tex_calls["calls"]:
         raise AssertionError(f"{tex_calls['calls']} texture calls made {tex_launches} texture "
                              f"launches")
@@ -1390,15 +1408,14 @@ def render_both(dev, make_scene, camera, settings, w: int = 160, h: int = 120,
     frame (a fly-through)."""
     import torch
 
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.engine import Engine
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
     pose = camera if callable(camera) else (lambda f: camera)
     imgs, rays, launches, gbufs = {}, {}, None, {}
     for where in (dev, torch.device("cpu")):
         eng = Engine(make_scene(where), w, h, settings, pose(0), CLEAR)
-        trace_kernel.launches = shade.launches = 0
+        kdev.reset_counts()
         for f in range(frames):
             eng.camera = pose(f)
             out = eng.render_frame()
@@ -1407,7 +1424,7 @@ def render_both(dev, make_scene, camera, settings, w: int = 160, h: int = 120,
         gbufs[where.type] = (None if eng.gbuffer is None else
                              type(eng.gbuffer)(*(x.cpu().numpy() for x in eng.gbuffer)))
         if where.type == "cuda":
-            launches = {"trace": trace_kernel.launches, "shade": shade.launches}
+            launches = launches_now(("trace", "shade"))
     return imgs, rays, launches, gbufs
 
 
@@ -1915,9 +1932,9 @@ def phase_instances_end_to_end(dev, results):
 
     from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.ops.alpha import DEFAULT_ROUNDS, AlphaTracer
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import CudaTracer, trace_kernel
+    from vkrt_tpu_torch.ops.cuda.trace import CudaTracer
     from vkrt_tpu_torch.scene_instances import build_instanced
     from vkrt_tpu_torch.utils.camera import Camera
 
@@ -1939,7 +1956,7 @@ def phase_instances_end_to_end(dev, results):
         for leg, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
             eng = Engine(build_instanced(cubes_doc(alpha), device=where), 160, 120, settings,
                          cam, CLEAR)
-            trace_kernel.launches = shade.launches = 0
+            kdev.reset_counts()
             for stage in ("before", "after"):
                 if stage == "after":
                     eng.set_node_transform(1, move)
@@ -1954,7 +1971,7 @@ def phase_instances_end_to_end(dev, results):
             if alpha and not isinstance(eng.tracer, AlphaTracer):
                 raise AssertionError("the BLEND cubes did not get the alpha tracer")
             if leg == "cuda":
-                launches = {"trace": trace_kernel.launches, "shade": shade.launches}
+                launches = launches_now(("trace", "shade"))
                 if not isinstance(inner, CudaTracer):
                     raise AssertionError(f"the card's tracer is {type(inner).__name__}")
         for stage in ("before", "after"):
@@ -2073,27 +2090,27 @@ BENCH_FRAMES = 1 + 3 * 8  # bench.py's frame 0, then 3 batches of 8
 
 def phase_bench(dev, results, card):
     """Phase 8: ``vkrt_tpu_torch.bench.main()`` at its real workload, the
-    accuracy anchor it runs, and ``entry()``'s frame step. The launch
-    counters are set to 0 just before the bench's frames (``bench.measure``)
-    and the anchor's renders (``accuracy.run``) and read just after each."""
+    accuracy anchor it runs, and ``entry()``'s frame step. ``device.counts``
+    is set to 0 just before the bench's frames (``bench.measure``) and the
+    anchor's renders (``accuracy.run``) and read just after each."""
     import contextlib
     import io
 
     import torch
 
     from vkrt_tpu_torch import bench
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.benchmarks import accuracy
     from vkrt_tpu_torch.entry import entry
-    from vkrt_tpu_torch.parallel.render import launch_counts, reset_launch_counts
 
     t_phase = time.perf_counter()
     seen = {}
 
     def counted(name, fn):
         def call(*args, **kw):
-            reset_launch_counts()
+            kdev.reset_counts()
             out = fn(*args, **kw)
-            seen[name] = (out, launch_counts())
+            seen[name] = (out, launches_now(("trace", "shade", "shade_albedo")))
             return out
         return call
 
@@ -2133,9 +2150,9 @@ def phase_bench(dev, results, card):
         f"0.01), ok {rec['ok']}; launches {anchor_launches} over {accuracy.FRAMES} frames")
 
     fn, args = entry()
-    reset_launch_counts()
+    kdev.reset_counts()
     accum, rays = fn(*args)
-    got = launch_counts()
+    got = launches_now(("trace", "shade", "shade_albedo"))
     a = accum.cpu().numpy()
     if not (np.isfinite(a).all() and float(a.max()) > 0.0 and float(rays) > 0.0):
         raise AssertionError("entry()'s frame step: non-finite, black or no rays")
@@ -2177,7 +2194,8 @@ def phase_mesh_main_path(dev, results, card):
     best = min(out["batches"])
     frames = 1 + 3 * 8
     want = {k: v * frames for k, v in path_launches(DEPTH, False).items()}
-    for rank, launches in enumerate(out["launches"]):
+    by_rank = [by_kernel(c, tuple(want)) for c in out["launches"]]
+    for rank, launches in enumerate(by_rank):
         if launches != want:
             raise AssertionError(f"rank {rank}: launch counts {launches} != {want}")
     eng = Engine(load_cornell(device=dev), W, H, path_settings(DEPTH), Camera(), CLEAR)
@@ -2193,7 +2211,7 @@ def phase_mesh_main_path(dev, results, card):
         verdict = "not compared bit for bit (more than one rank)"
     log(f"[mesh] suite row 6 at {W}x{H} ({card}), mesh {rec['mesh']} over {rec['backend']}: "
         f"best batch {best[0]:.4f} ms/frame, {best[1]:.4f} Mrays/s, {best[2]:.0f} rays/frame; "
-        f"launches {out['launches']} over {frames} frames; {verdict}")
+        f"launches {by_rank} over {frames} frames; {verdict}")
 
     # the same frames in turns with the engine (engine, mesh, mesh, engine),
     # each the best of 3 batches of 8 from frame 0 on the host clock between
@@ -2221,7 +2239,7 @@ def phase_mesh_main_path(dev, results, card):
         f"{turns['mesh'][0]:.4f} / {turns['mesh'][1]:.4f} ms/frame; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
     for name in ("trace", "shade", "shade_albedo"):
-        results[name]["mesh_launches"] = [c[name] for c in out["launches"]]
+        results[name]["mesh_launches"] = [c[name] for c in by_rank]
     results["mesh"] = {"ms_per_frame": best[0], "mrays_per_s": best[1],
                        "rays_per_frame": best[2], "mesh": rec["mesh"],
                        "backend": rec["backend"], "turns_ms": turns}
@@ -2254,7 +2272,8 @@ def phase_mesh_hybrid(dev, results, city, card):
     wall = time.perf_counter() - t_phase
     per_frame = hybrid_launches(HYBRID_DEPTH, True)
     want = {k: v * frames for k, v in per_frame.items()}
-    for rank, launches in enumerate(res["launches"]):
+    by_rank = [by_kernel(c, tuple(want)) for c in res["launches"]]
+    for rank, launches in enumerate(by_rank):
         if launches != want:
             raise AssertionError(f"rank {rank}: launch counts {launches} != {want}")
     eng = Engine(city, W, H, settings, poses[0], CLEAR)
@@ -2278,11 +2297,11 @@ def phase_mesh_hybrid(dev, results, city, card):
         f"4 ranks sharing one card ({card}): {frames} frames in {res['seconds']:.3f} s on "
         f"rank 0 ({res['seconds'] / frames * 1e3:.1f} ms/frame, each frame's image gathered; "
         f"a parity run, not a speed number for a mesh); launches per rank "
-        f"{res['launches']}; rays {res['rays']:.0f} (engine {eng.total_rays:.0f}); phase "
+        f"{by_rank}; rays {res['rays']:.0f} (engine {eng.total_rays:.0f}); phase "
         f"{time.perf_counter() - t_phase:.1f} s, {wall:.1f} s of it the ranks' spawn, "
         f"scenes and frames")
     for name in ("trace", "shade", "shade_albedo"):
-        results[name]["mesh_hybrid_launches"] = [c[name] for c in res["launches"]]
+        results[name]["mesh_hybrid_launches"] = [c[name] for c in by_rank]
     results["mesh_hybrid"] = {"seconds": res["seconds"], "max_abs_diff": worst,
                               "backend": res["backend"]}
 
@@ -2369,23 +2388,19 @@ def phase_probes(dev, results, shadow_pool, city):
 
 def drive_probes(dev, city) -> dict:
     """Build Cornell (``city``: the city's BuiltScene, built already), then
-    run every probe entry point as a user runs it, with the launch counters
+    run every probe entry point as a user runs it, with ``device.counts``
     set to 0 just before and read just after."""
     import torch
 
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.benchmarks import ablate_kernel, build, micro_trace, variants, vpupeak
-    from vkrt_tpu_torch.ops.cuda.probes import floor_kernel, fma_peak
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
-    from vkrt_tpu_torch.ops.cuda.trace_variants import trace_ablate, trace_variant
 
     built = {"cornell": build("cornell", dev), "city": city}
     log(f"[probes] city: {city.scene.num_tris} triangles (padded), host build "
         f"{city.seconds['scene']:.4f} s scene + {city.seconds['bvh']:.4f} s BVH + "
         f"{city.seconds['tables']:.4f} s tables; {city.tables.bvh.threaded.shape[0]} BVH nodes, "
         f"{city.tables.bvh.nodes.shape[0]} child-box records, depth {city.tables.max_depth}")
-    counters = (floor_kernel, fma_peak, trace_ablate, trace_variant, trace_kernel)
-    for c in counters:
-        c.launches = 0
+    kdev.reset_counts()
     run = {
         "built": built,
         "mt": {k: micro_trace.run(k, W, H, iters=8, device=dev, built=b)
@@ -2398,7 +2413,8 @@ def drive_probes(dev, city) -> dict:
     }
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    run["launches"] = {c.__name__: c.launches for c in counters}
+    run["launches"] = launches_now(("floor", "fma_peak", "trace_ablate", "trace_variant",
+                                     "trace"))
     return run
 
 
@@ -2441,7 +2457,7 @@ def check_probes(dev, run, results, shadow_pool) -> None:
     # |t_lim|, tri = -1, u = v = 0 written): zero_ of the record writes 16 of
     # its 44 B a ray and is only a write-only yardstick
     results["floor"] = {
-        "launches": launches["floor_kernel"], "max_abs_err": 0.0,
+        "launches": launches["floor"], "max_abs_err": 0.0,
         "ms": floor["device_us"] * 1e-3,
         "plain_ms": cuda_ms(lambda: floor_plain(o, d, lim)),
         "bound_ms": c_bound[0], "bound_by": c_bound[1], "library_ms": None,
@@ -2733,6 +2749,7 @@ def phase_lbvh(dev, results, city, sponzoid, card):
 
     import torch
 
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch import scene_instances as si
     from vkrt_tpu_torch.benchmarks.ablate_kernel import visit_stats
     from vkrt_tpu_torch.benchmarks.micro_trace import make_rays
@@ -2740,7 +2757,7 @@ def phase_lbvh(dev, results, city, sponzoid, card):
     from vkrt_tpu_torch.bvh.lbvh import build_lbvh
     from vkrt_tpu_torch.engine import Engine
     from vkrt_tpu_torch.ops.cuda.trace import (
-        node_depths, pack_bvh_nodes, pack_tris, threaded_tables, trace_kernel,
+        node_depths, pack_bvh_nodes, pack_tris, threaded_tables,
     )
     from vkrt_tpu_torch.ops.cuda.trace_variants import (
         LbvhTracer, trace_ablate, trace_threaded, trace_variant,
@@ -2816,9 +2833,9 @@ def phase_lbvh(dev, results, city, sponzoid, card):
         o, d = make_rays(sc, W, H, kind, dev)
         n = o.shape[0]
         lim = torch.full((n,), T_MAX, device=dev)
-        trace_variant.launches = 0
+        kdev.reset_counts()
         hits = trace_threaded(nodes, tri_rec, o, d, lim)
-        if trace_variant.launches != 1:
+        if kdev.counts["vkrt_trace_variant"]["launches"] != 1:
             raise AssertionError("trace_threaded did not launch kernel E")
         idx = subsample(n, 4096).to(dev)
         t0 = time.perf_counter()
@@ -2883,7 +2900,7 @@ def phase_lbvh(dev, results, city, sponzoid, card):
         for k in parts:
             parts[k] = []
             setattr(si, k, timed_part(k))
-        trace_variant.launches = trace_kernel.launches = 0
+        kdev.reset_counts()
         try:
             frames = []
             for f in range(3):
@@ -2893,8 +2910,7 @@ def phase_lbvh(dev, results, city, sponzoid, card):
         finally:
             for k, fn in real_parts.items():
                 setattr(si, k, fn)
-        launches[backend] = {"trace_variant": trace_variant.launches,
-                             "trace": trace_kernel.launches}
+        launches[backend] = launches_now(("trace_variant", "trace"))
         images[backend] = frames
         split[backend] = {k: float(np.mean(v)) for k, v in parts.items()}
     per = general_launches(SPONZOID_DEPTH)["trace"] * 3
@@ -3092,7 +3108,7 @@ def main() -> int:
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                **results[name]} for name, (src, rep) in KERNELS.items()]
+                **results[name]} for name, (src, _, rep) in KERNELS.items()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     for kk in kernels:

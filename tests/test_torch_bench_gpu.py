@@ -29,18 +29,27 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches() -> dict:
+    """Kernels A's and B's launches, and B's albedo launches, since the
+    last ``device.reset_counts()``."""
+    from vkrt_tpu_torch import device as kdev
+
+    return {e: kdev.counts[e]["launches"]
+            for e in ("vkrt_trace", "vkrt_shade", kdev.SHADE_ALBEDO)}
+
+
 def test_bench_and_anchor_on_the_card(cuda, tmp_path, monkeypatch, capsys):
     from vkrt_tpu_torch import bench
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.benchmarks import accuracy
-    from vkrt_tpu_torch.parallel.render import launch_counts, reset_launch_counts
 
     seen = {}
 
     def counted(name, fn):
         def call(*args, **kw):
-            reset_launch_counts()
+            kdev.reset_counts()
             out = fn(*args, **kw)
-            seen[name] = (out, launch_counts())
+            seen[name] = (out, _launches())
             return out
         return call
 
@@ -54,21 +63,23 @@ def test_bench_and_anchor_on_the_card(cuda, tmp_path, monkeypatch, capsys):
     assert rec["value"] > 0 and rec["ms_per_frame"] > 0
     assert rec["device"] == torch.cuda.get_device_name(0) and rec["power_limit"]
     res, launches = seen["bench"]
-    assert launches == {"trace": 6 * 25, "shade": 3 * 25, "shade_albedo": 0}
+    assert launches == {"vkrt_trace": 6 * 25, "vkrt_shade": 3 * 25,
+                        "vkrt_shade.albedo": 0}
     anchor, anchor_launches = seen["accuracy"]
-    assert anchor_launches == {"trace": 6 * 3, "shade": 3 * 3, "shade_albedo": 0}
+    assert anchor_launches == {"vkrt_trace": 6 * 3, "vkrt_shade": 3 * 3,
+                              "vkrt_shade.albedo": 0}
     assert anchor["ok"] and json.loads((tmp_path / "acc.json").read_text()) == anchor
     assert res["accum"].device.type == "cuda"
 
 
 def test_entry_on_the_card(cuda):
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.entry import entry
-    from vkrt_tpu_torch.parallel.render import launch_counts, reset_launch_counts
 
     fn, args = entry()
     assert all(t.device.type == "cuda" for t in (args[0].view_inverse, args[2], args[3]))
-    reset_launch_counts()
+    kdev.reset_counts()
     accum, rays = fn(*args)
-    assert launch_counts() == {"trace": 6, "shade": 3, "shade_albedo": 0}
+    assert _launches() == {"vkrt_trace": 6, "vkrt_shade": 3, "vkrt_shade.albedo": 0}
     a = accum.cpu().numpy()
     assert np.isfinite(a).all() and a.max() > 0 and float(rays) > 0

@@ -73,17 +73,16 @@ def test_denoise_temporal_on_card_matches_cpu(cuda):
 
 
 def _render(dev, scene, settings, pose, frames=FRAMES):
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.engine import Engine
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
 
     eng = Engine(scene, W, H, settings, pose(0))
-    trace_kernel.launches = shade.launches = 0
+    kdev.reset_counts()
     for f in range(frames):
         eng.camera = pose(f)
         img = eng.render_frame()
     return (img.cpu().numpy().astype(np.float64), eng.total_rays,
-            (trace_kernel.launches, shade.launches))
+            (kdev.counts["vkrt_trace"]["launches"], kdev.counts["vkrt_shade"]["launches"]))
 
 
 def _city(dev, alpha: bool):

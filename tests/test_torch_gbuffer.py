@@ -15,8 +15,6 @@ its brute-force tracer.
   decides) stay under 1% of the frame.
 * ``direct_lighting`` on seeded random surface points, with every second
   light made directional (the reference's L = normalize(position) quirk).
-* The resolve branch (a tracer with ``resolves_attrs``) against the gather
-  branch on the same hits.
 """
 
 import numpy as np
@@ -169,32 +167,3 @@ def test_direct_lighting_matches_jax(scenes, name):
     got = direct_lighting(port_scene(js), *(torch.from_numpy(a) for a in args)).numpy()
     assert (want > 0).any(-1).mean() > 0.2
     np.testing.assert_allclose(got, want, **FIELD_TOL)
-
-
-class ResolvingTracer:
-    """The port's brute force behind the ``resolves_attrs`` contract: the
-    pass then takes the winner's attributes from ``closest_surface``."""
-
-    resolves_attrs = True
-
-    def __init__(self, inner):
-        self.inner = inner
-
-    def closest_surface(self, orig, direction, t_min, t_max, t_lim=None):
-        return self.inner.closest_surface(orig, direction, t_min, t_max, t_lim=t_lim)
-
-
-@pytest.mark.parametrize("name", ["cornell", "glb"])
-def test_gbuffer_resolve_branch(scenes, name):
-    """The resolve branch (``surface_from_attrs``) against the gather branch
-    (``surface_at_hit``) on the same hits: the mask exact, the fields within
-    1e-4 (the two interpolate the corner attributes in another order)."""
-    js, jcamera = scenes[name]
-    ts, cam = port_scene(js), port_cam(jcamera.matrices(W, H))
-    tracer = make_tracer(ts)
-    want = gbuffer_pass(ts, tracer, cam, W, H, CLEAR)
-    got = gbuffer_pass(ts, ResolvingTracer(tracer), cam, W, H, CLEAR)
-    np.testing.assert_array_equal(_miss(got), _miss(want))
-    for f in GBuffer._fields:
-        np.testing.assert_allclose(_np(getattr(got, f)), _np(getattr(want, f)), rtol=1e-4,
-                                   atol=1e-4, err_msg=f)

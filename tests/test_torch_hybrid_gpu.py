@@ -39,10 +39,9 @@ def _gate(a, b):
 
 @pytest.mark.parametrize("gi", [False, True])
 def test_hybrid_city_frame_matches_cpu(cuda, gi):
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.engine import Engine
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
     from vkrt_tpu_torch.scene import make_city
     from vkrt_tpu_torch.utils.camera import orbit_camera
 
@@ -50,7 +49,7 @@ def test_hybrid_city_frame_matches_cpu(cuda, gi):
     out, gbuf, rays = {}, {}, {}
     for dev in (cuda, torch.device("cpu")):
         eng = Engine(make_city(grid=8, device=dev), W, H, RenderSettings(use_gi=gi), cam)
-        trace_kernel.launches = shade.launches = shade.albedo_launches = 0
+        kdev.reset_counts()
         for _ in range(FRAMES):
             img = eng.render_frame()
         out[dev.type] = img.cpu().numpy().astype(np.float64)
@@ -58,7 +57,8 @@ def test_hybrid_city_frame_matches_cpu(cuda, gi):
         rays[dev.type] = eng.total_rays
         if dev.type == "cuda":
             want = (6, 2) if gi else (2, 0)
-            assert (trace_kernel.launches, shade.launches, shade.albedo_launches) == (
+            assert tuple(kdev.counts[e]["launches"] for e in (
+                "vkrt_trace", "vkrt_shade", kdev.SHADE_ALBEDO)) == (
                 want[0] * FRAMES, want[1] * FRAMES, want[1] * FRAMES)
     g, c = gbuf["cuda"], gbuf["cpu"]
 

@@ -51,6 +51,12 @@ def _scene(kind, device):
     return make_city(grid=16, device=device), 20.0
 
 
+def _launches(entry: str) -> int:
+    from vkrt_tpu_torch import device as kdev
+
+    return kdev.counts[entry]["launches"]
+
+
 @pytest.mark.parametrize("kind", ["box", "soup", "city"])
 def test_trace_kernel_matches_bruteforce(cuda, kind):
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer, trace_kernel
@@ -59,9 +65,9 @@ def test_trace_kernel_matches_bruteforce(cuda, kind):
     scene, extent = _scene(kind, cuda)
     tracer = make_cuda_tracer(scene)
     o, d, lim = _rays(1 << 15, 1, cuda, extent)
-    before = trace_kernel.launches
+    before = _launches("vkrt_trace")
     k = trace_kernel(tracer.bvh, scene, o, d, lim)
-    assert trace_kernel.launches == before + 1
+    assert _launches("vkrt_trace") == before + 1
     p = trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2, o, d, lim)
     assert torch.equal(k.tri >= 0, p.tri >= 0)
     assert (k.tri >= 0).float().mean() > 0.05
@@ -101,7 +107,7 @@ def test_shade_kernel_matches_plain(cuda, corr):
     )
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer
     from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-    from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
+    from vkrt_tpu_torch.ops.rng import block_uniform_table, rnd, tea
     from vkrt_tpu_torch.scene import make_cornell_box
     from vkrt_tpu_torch.utils.camera import Camera, generate_rays
 
@@ -123,14 +129,14 @@ def test_shade_kernel_matches_plain(cuda, corr):
     sh_tri = None
     for dd in range(3):
         hit = tracer.trace_block(rays)
-        tab = block_table_rep(n // 1024, 77, dd, device=cuda) if corr else None
+        tab = block_uniform_table(n // 1024, 77, dd, device=cuda) if corr else None
         p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2, hitdist_weight=1.0,
                         hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX,
                         clear=(1.0, 1.0, 1.0), clamp_lo=lo, clamp_hi=hi)
         args = (carry, seed, rays, hit, sh_tri, scene, mat_tab, light_tab, tab, p)
-        before = shade.launches
+        before = _launches("vkrt_shade")
         k = shade(*args)
-        assert shade.launches == before + 1
+        assert _launches("vkrt_shade") == before + 1
         q = shade_plain(*args)
         kc, qc = k.carry.cpu().numpy(), q.carry.cpu().numpy()
         agree = ((kc[C_ACTIVE] > 0) == (qc[C_ACTIVE] > 0)) & ((kc[C_PSH] > 0) == (qc[C_PSH] > 0))
@@ -190,12 +196,14 @@ def _close_outputs(k, q, lanes=None, frac=0.99, rtol=1e-4):
 @pytest.mark.parametrize("corr", [True, False])
 def test_shade_albedo_kernel_matches_plain(cuda, corr):
     """Kernel B's albedo instantiation against ``shade_plain`` with the
-    albedo branch, three bounces of a city pool; the counters count it."""
+    albedo branch, three bounces of a city pool; each counts one launch of
+    ``vkrt_shade`` and one of its albedo row."""
     from vkrt_tpu_torch.ops.cuda.shade import (
         ShadeParams, clamp_bounds, scene_tables, shade, shade_plain,
     )
     from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-    from vkrt_tpu_torch.ops.rng import block_table_rep
+    from vkrt_tpu_torch import device as kdev
+    from vkrt_tpu_torch.ops.rng import block_uniform_table
 
     scene, tracer, carry, seed, rays = _city_pool(cuda)
     n = seed.shape[0]
@@ -204,14 +212,15 @@ def test_shade_albedo_kernel_matches_plain(cuda, corr):
     sh_tri = None
     for dd in range(3):
         hit = tracer.trace_block(rays)
-        tab = block_table_rep(n // 1024, 91, dd, device=cuda) if corr else None
+        tab = block_uniform_table(n // 1024, 91, dd, device=cuda) if corr else None
         p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2, hitdist_weight=1.0,
                         hitdist_accumulate=True, t_min=T_MIN, t_max=T_MAX,
                         clear=(1.0, 1.0, 1.0), clamp_lo=lo, clamp_hi=hi, albedo=True)
         args = (carry, seed, rays, hit, sh_tri, scene, mat_tab, light_tab, tab, p)
-        before = (shade.launches, shade.albedo_launches)
+        before = (_launches("vkrt_shade"), _launches(kdev.SHADE_ALBEDO))
         k = shade(*args)
-        assert (shade.launches, shade.albedo_launches) == (before[0] + 1, before[1] + 1)
+        assert (_launches("vkrt_shade"), _launches(kdev.SHADE_ALBEDO)) == (
+            before[0] + 1, before[1] + 1)
         _close_outputs(k, shade_plain(*args))
         if dd == 0:  # the fetch is live: the untextured kernel differs
             u = shade(*args[:-1], p._replace(albedo=False))
@@ -255,7 +264,7 @@ def test_wrappers_refuse_bad_inputs(cuda):
     scene = make_cornell_box(device=cuda)
     tracer = make_cuda_tracer(scene)
     o = torch.zeros((8, 3), device=cuda)
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):
         trace_kernel(tracer.bvh, scene, o.double(), o, torch.ones(8, device=cuda))
     with pytest.raises(ValueError):
         trace_kernel(tracer.bvh, scene, o, o, torch.ones(8))
@@ -271,7 +280,7 @@ def test_wrappers_refuse_bad_inputs(cuda):
                     hitdist_accumulate=True, t_min=1e-3, t_max=1e4,
                     clear=(1.0, 1.0, 1.0), clamp_lo=0.0, clamp_hi=50.0)
     shade(carry, seed, rays, hit, None, scene, mat_tab, light_tab, None, p)
-    with pytest.raises(ValueError):  # the seed is int32 bits, not f32
+    with pytest.raises(TypeError):  # the seed is int32 bits, not f32
         shade(carry, z, rays, hit, None, scene, mat_tab, light_tab, None, p)
     with pytest.raises(ValueError):  # a carry of the wrong lane count
         shade(carry[:, :128], seed, rays, hit, None, scene, mat_tab, light_tab, None, p)

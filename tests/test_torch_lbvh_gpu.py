@@ -12,7 +12,7 @@ card's machine has no JAX: run with
   same tables) bit for bit on rays of every kind (closest, first-hit-kills,
   zero limits, dead lanes: the verdict alone where a lane is first-hit-
   kills), and kernel A over the SAH tree on the closest lanes; the
-  launches count in ``trace_variant.launches``;
+  launches count under ``vkrt_trace_variant`` in ``device.counts``;
 * ``SortingTracer`` over kernel A gives kernel A's hits bit for bit."""
 
 import numpy as np
@@ -77,8 +77,9 @@ def _rays(n, seed, lo, hi, device):
 
 
 def test_threaded_walk_over_lbvh(cuda):
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.ops.cuda.trace import make_cuda_tracer
-    from vkrt_tpu_torch.ops.cuda.trace_variants import LbvhTracer, trace_variant
+    from vkrt_tpu_torch.ops.cuda.trace_variants import LbvhTracer
     from vkrt_tpu_torch.ops.trace import make_tracer, trace_rays_bvh
 
     sc = _scene("city", cuda)
@@ -86,9 +87,10 @@ def test_threaded_walk_over_lbvh(cuda):
     assert isinstance(tr, LbvhTracer) and tr.nodes.device.type == "cuda"
     v0 = sc.tri_v0.cpu().numpy()
     o, d, lim = _rays(65536, 1, v0.min(0), v0.max(0), cuda)
-    before = trace_variant.launches
+    count = kdev.counts["vkrt_trace_variant"]
+    before = count["launches"]
     got = tr.trace(o, d, lim)
-    assert trace_variant.launches == before + 1
+    assert count["launches"] == before + 1
     plain = trace_rays_bvh(tr.nodes.cpu(), None, o.cpu(), d.cpu(), lim.cpu(),
                            tris=tr.tris.cpu())
     kill = (lim < 0).cpu()

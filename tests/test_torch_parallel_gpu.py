@@ -52,13 +52,19 @@ def _job(kind, frames, **kw):
     return dict(job, cameras=[Camera()] * frames)
 
 
+def _kernels_a_b(launches: dict):
+    """Kernel A's and B's launches, and B's albedo launches, in a rank's
+    ``device.counts`` copy."""
+    return launches["vkrt_trace"], launches["vkrt_shade"], launches["vkrt_shade.albedo"]
+
+
 def test_mesh11_matches_engine_on_the_card(cuda):
     from vkrt_tpu_torch.parallel.mesh import launch
     from vkrt_tpu_torch.parallel.render import run_jobs
 
     (res,) = launch(run_jobs, 1, 1, "cuda", [_job("path", 2, corr=True)])
     assert res["backend"] == "nccl"
-    assert res["launches"] == [{"trace": 12, "shade": 6, "shade_albedo": 0}]
+    assert [_kernels_a_b(c) for c in res["launches"]] == [(12, 6, 0)]
     e = _engine(cuda, 2, rt_mode=1, corr_sampler=True)
     assert torch.equal(res["accum"], e.accum[e._inv_perm].cpu())
     assert res["rays"] == e.total_rays
@@ -76,8 +82,8 @@ def test_ranks_match_engine(cuda, n_tile):
         _job("hybrid", 2, use_gi=True, use_denoiser=True, corr=False)])
     want = "nccl" if torch.cuda.device_count() >= n_tile else "gloo"
     assert path["backend"] == hyb["backend"] == want
-    assert path["launches"] == [{"trace": 12, "shade": 6, "shade_albedo": 0}] * n_tile
-    assert hyb["launches"] == [{"trace": 12, "shade": 4, "shade_albedo": 0}] * n_tile
+    assert [_kernels_a_b(c) for c in path["launches"]] == [(12, 6, 0)] * n_tile
+    assert [_kernels_a_b(c) for c in hyb["launches"]] == [(12, 4, 0)] * n_tile
     e = _engine(cuda, 2, rt_mode=1, corr_sampler=False)
     assert torch.equal(path["accum"], e.accum[e._inv_perm].cpu())
     assert path["rays"] == e.total_rays

@@ -74,10 +74,9 @@ def test_corr_tables_bit_exact(corr_seed, depth):
     want = np.asarray(jrng.block_uniform_table(13, jnp.uint32(corr_seed), depth))
     got = trng.block_uniform_table(13, corr_seed, depth)
     np.testing.assert_array_equal(got.numpy(), want)
+    # the table JAX's shade step reads (its block_table_rep) is this one
     np.testing.assert_array_equal(
-        trng.block_table_rep(13, corr_seed, depth).numpy(),
-        np.asarray(jrng.block_table_rep(13, jnp.uint32(corr_seed), depth)),
-    )
+        got.numpy(), np.asarray(jrng.block_table_rep(13, jnp.uint32(corr_seed), depth)))
     n = 3 * 1024 + 77
     np.testing.assert_array_equal(
         trng.corr_draws(n, corr_seed, depth).numpy(),
@@ -116,7 +115,7 @@ def test_cpu_calls_keep_the_int64_path(monkeypatch):
     trng.seed_pixels(40, 24, 3)
     for device in (None, "cpu", torch.device("cpu")):
         np.testing.assert_array_equal(
-            _u32(trng.block_table_rep(13, 7, 2, device=device)),
+            _u32(trng.block_uniform_table(13, 7, 2, device=device)),
             _u32(trng.block_uniform_table_plain(13, torch.tensor(7), 2, device=device)))
         np.testing.assert_array_equal(
             _u32(trng.corr_draws(3 * 1024 + 77, 7, 2, device=device)),
@@ -142,7 +141,7 @@ def test_card_dispatch_passes_host_ints_as_scalars(monkeypatch):
     trng.tea(ids, 5)
     trng.tea(ids.to(torch.int32), 0xFFFFFFFF, rounds=8)
     trng.seed_pixels(4, 3, 9)
-    trng.block_table_rep(13, 0xFFFFFFFF, 3, device="cpu")
+    trng.block_uniform_table(13, 0xFFFFFFFF, 3, device="cpu")
     trng.corr_draws(3 * 1024 + 77, 9, 66, device="cpu")
     trng.corr_draws(250, 9, 1, block=100, device="cpu")
     assert seen == [
@@ -153,7 +152,7 @@ def test_card_dispatch_passes_host_ints_as_scalars(monkeypatch):
     ]
     # on the card a tensor seed raises: no call falls back to the int64 rounds
     for call in (lambda: trng.tea(ids, torch.tensor(5)),
-                 lambda: trng.block_table_rep(13, torch.tensor(5), 3, device="cpu"),
+                 lambda: trng.block_uniform_table(13, torch.tensor(5), 3, device="cpu"),
                  lambda: trng.corr_draws(250, torch.tensor(5), 1, device="cpu")):
         with pytest.raises(TypeError, match="host integer"):
             call()

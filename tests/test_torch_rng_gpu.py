@@ -37,6 +37,12 @@ def cuda():
     return torch.device("cuda")
 
 
+def _launches(entry: str) -> int:
+    from vkrt_tpu_torch import device as kdev
+
+    return kdev.counts[entry]["launches"]
+
+
 def _u32(t):
     return t.cpu().numpy().view(np.uint32)
 
@@ -49,7 +55,6 @@ def _ids(n=100_000):
 @pytest.mark.parametrize("rounds", [8, 16])
 def test_tea_kernel_bit_exact(cuda, rounds):
     from vkrt_tpu_torch.ops import rng
-    from vkrt_tpu_torch.ops.cuda import rng as rng_cuda
 
     ids = _ids()
     high = ids + (np.arange(ids.size) % 3 - 1) * 2**32  # other high words, negatives too
@@ -57,21 +62,21 @@ def test_tea_kernel_bit_exact(cuda, rounds):
     for val1 in VAL1:
         want = _u32(rng.tea(torch.from_numpy(ids), val1, rounds))
         for v0 in (ids, high, bits):
-            before = rng_cuda.tea.launches
+            before = _launches("vkrt_rng_tea")
             got = rng.tea(torch.from_numpy(v0).to(cuda), val1, rounds)
-            assert rng_cuda.tea.launches == before + 1
+            assert _launches("vkrt_rng_tea") == before + 1
             assert got.dtype == torch.int32 and got.shape == (ids.size,)
             np.testing.assert_array_equal(_u32(got), want)
         # the plain version on the card, called by name, agrees
         np.testing.assert_array_equal(
             _u32(rng.tea_plain(torch.from_numpy(ids).to(cuda), val1, rounds)), want)
     # on the card a tensor seed, or an id that is not int64 or int32, raises
-    before = rng_cuda.tea.launches
+    before = _launches("vkrt_rng_tea")
     with pytest.raises(TypeError, match="host integer"):
         rng.tea(torch.from_numpy(ids).to(cuda), torch.tensor(VAL1[-1], device=cuda), rounds)
     with pytest.raises(TypeError, match="int64 or int32"):
         rng.tea(torch.from_numpy(ids).to(cuda).to(torch.int16), 5, rounds)
-    assert rng_cuda.tea.launches == before
+    assert _launches("vkrt_rng_tea") == before
 
 
 def test_seed_pixels_on_the_card(cuda):
@@ -85,13 +90,12 @@ def test_seed_pixels_on_the_card(cuda):
 @pytest.mark.parametrize("g", [1, 7, 8100])
 def test_table_kernel_bit_exact(cuda, g):
     from vkrt_tpu_torch.ops import rng
-    from vkrt_tpu_torch.ops.cuda import rng as rng_cuda
 
     for corr_seed in (0, 2**31, 0x9E3779B9, 0xFFFFFFFF):
         for depth in (0, 1, 3, 64, 67, 72):
-            before = rng_cuda.table.launches
-            got = rng.block_table_rep(g, corr_seed, depth, device=cuda)
-            assert rng_cuda.table.launches == before + 1
+            before = _launches("vkrt_rng_table")
+            got = rng.block_uniform_table(g, corr_seed, depth, device=cuda)
+            assert _launches("vkrt_rng_table") == before + 1
             assert got.shape == (g, 8) and got.dtype == torch.float32
             np.testing.assert_array_equal(_u32(got),
                                           _u32(rng.block_uniform_table(g, corr_seed, depth)))
@@ -101,12 +105,11 @@ def test_table_kernel_bit_exact(cuda, g):
                                      (100_003, 1024), (5_000, 100)])
 def test_corr_draws_kernel_bit_exact(cuda, n, block):
     from vkrt_tpu_torch.ops import rng
-    from vkrt_tpu_torch.ops.cuda import rng as rng_cuda
 
     for depth in (0, 2, 66):
-        before = rng_cuda.table.launches
+        before = _launches("vkrt_rng_table")
         got = rng.corr_draws(n, 0x12345678, depth, block=block, device=cuda)
-        assert rng_cuda.table.launches == before + 1
+        assert _launches("vkrt_rng_table") == before + 1
         assert got.shape == (n, 6) and got.is_contiguous()
         np.testing.assert_array_equal(_u32(got),
                                       _u32(rng.corr_draws(n, 0x12345678, depth, block=block)))
@@ -150,7 +153,6 @@ def test_engine_frame_rng_without_sync(cuda, mode, monkeypatch, tmp_path):
         calls.append(("table", (n_rows, corr_seed, dk, n_lanes, block), out))
         return out
 
-    tea.launches = table.launches = 0
     monkeypatch.setattr(rng_cuda, "tea", tea)
     monkeypatch.setattr(rng_cuda, "table", table)
 

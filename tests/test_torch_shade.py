@@ -26,7 +26,7 @@ from vkrt_tpu_torch.ops.cuda.shade import (
     C_ACTIVE, C_PSH, ShadeParams, clamp_bounds, scene_tables, shade, shade_plain,
 )
 from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
-from vkrt_tpu_torch.ops.rng import block_table_rep, rnd, tea
+from vkrt_tpu_torch.ops.rng import block_uniform_table, rnd, tea
 from vkrt_tpu_torch.ops.trace import Tracer
 from vkrt_tpu_torch.scene import scene_from_numpy
 from vkrt_tpu_torch.utils.camera import Camera, generate_rays, orbit_camera, pixel_coords
@@ -61,7 +61,7 @@ def _states(ts, corr: bool, cam=Camera(), albedo: bool = False):
     out = []
     for dd in range(3):
         hit = tracer.trace_block(rays)
-        tab = (block_table_rep(N // 1024, corr_seed_for(FRAME, 0), dd)
+        tab = (block_uniform_table(N // 1024, corr_seed_for(FRAME, 0), dd)
                if corr else None)
         out.append((carry, seed, rays, hit, sh_tri, tab))
         p = ShadeParams(d=dd, first=dd == 0, resolve_hd=dd == 2,

@@ -1,12 +1,11 @@
 """The texel fetch's dispatch on the CPU (``ops/texture.py`` ->
 ``ops/cuda/texture.py``): CPU tensors take the plain PyTorch path, bit for
-bit, under the "texture" range and without touching the kernel's
-counters; the wrappers refuse CPU tensors, wrong dtypes and shapes,
-strided lanes, and a tap count other than 2 or 4, before any launch; and the C entry points of
-``csrc/texture.cu`` take the arguments ``device.py`` binds. The kernel
-itself runs only on the card (``tests/test_torch_texture_gpu.py``)."""
+bit, under the "texture" range and without touching the kernel's counts in
+``device.counts``; the wrappers refuse CPU tensors, wrong dtypes and
+shapes, strided lanes, and a tap count other than 2 or 4, before any
+launch. The kernel itself runs only on the card
+(``tests/test_torch_texture_gpu.py``)."""
 
-import re
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +52,8 @@ def _calls(sampler, t):
 
 
 def _counters():
-    return dict(tex_cuda.launches), dict(tex_cuda.lanes)
+    return {e: dict(kdev.counts[e]) for e in ("vkrt_tex_level0", "vkrt_tex_lod",
+                                              "vkrt_tex_aniso")}
 
 
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
@@ -164,41 +164,6 @@ def test_wrappers_refuse_strided_lanes(case):
     with pytest.raises(ValueError, match="must be contiguous"):
         STRIDED[case](t)
     assert _counters() == before
-
-
-def test_counts_are_module_state():
-    """The counts live in the module, so a patched wrapper leaves them to
-    the real one; ``reset`` zeroes every sampler's."""
-    tex_cuda.launches["aniso"] += 2
-    tex_cuda.lanes["aniso"] += 7
-    tex_cuda.reset()
-    assert tex_cuda.launches == {"level0": 0, "trilinear": 0, "aniso": 0}
-    assert tex_cuda.lanes == {"level0": 0, "trilinear": 0, "aniso": 0}
-
-
-def _c_params(src: str, name: str) -> list:
-    m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-    assert m, name
-    return [p.strip() for p in m.group(1).split(",")]
-
-
-@pytest.mark.parametrize("entry", ["vkrt_tex_level0", "vkrt_tex_lod", "vkrt_tex_aniso"])
-def test_entry_points_match_their_bindings(entry):
-    """Each C entry point of csrc/texture.cu takes as many parameters as
-    device.py binds, each pointer where a pointer is bound, each 64-bit
-    integer where one is bound (a wrong width would cut a stride)."""
-    import ctypes
-
-    params = _c_params((REPO / "vkrt_tpu_torch/csrc/texture.cu").read_text(), entry)
-    bound = kdev._SIGNATURES[entry]
-    assert len(params) == len(bound)
-    for p, t in zip(params, bound):
-        if t is ctypes.c_void_p:
-            assert "*" in p, p
-        elif t is ctypes.c_int64:
-            assert p.startswith("int64_t "), p
-        else:
-            assert p.startswith("int "), p
 
 
 def test_kernel_named_for_the_profile():

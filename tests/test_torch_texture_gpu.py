@@ -94,18 +94,24 @@ def _lanes(n, device, idx_dtype, seed=11):
     return tuple(x.to(device) for x in t)
 
 
-def _launched(sampler, fn):
-    from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
+# each sampler's entry point in device.counts
+ENTRY = {"level0": "vkrt_tex_level0", "trilinear": "vkrt_tex_lod", "aniso": "vkrt_tex_aniso"}
 
-    before = tex_cuda.launches[sampler]
+
+def _launches(sampler) -> int:
+    from vkrt_tpu_torch import device as kdev
+
+    return kdev.counts[ENTRY[sampler]]["launches"]
+
+
+def _launched(sampler, fn):
+    before = _launches(sampler)
     out = fn()
-    return out, tex_cuda.launches[sampler] - before
+    return out, _launches(sampler) - before
 
 
 def _all_launches():
-    from vkrt_tpu_torch.ops.cuda import texture as tex_cuda
-
-    return sum(tex_cuda.launches.values())
+    return sum(map(_launches, ENTRY))
 
 
 @pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
@@ -198,7 +204,7 @@ def test_wrappers_refuse_on_the_card(cuda):
         tex.sample_texture_lod(mip[0], mip[1].long(), *mip[2:], idx, uv, lod)
     with pytest.raises(ValueError, match="taps"):
         tex.sample_texture_aniso(*mip, idx, uv, ddx, ddy, taps=3)
-    with pytest.raises(ValueError, match="lanes on cpu"):
+    with pytest.raises(ValueError, match="lod is on cpu"):
         tex.sample_texture_lod(*mip, idx, uv, lod.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         tex.sample_texture(tex_rgba.transpose(1, 2), tex_size, idx, uv)
@@ -245,9 +251,9 @@ def test_engine_frame_texture_one_launch_without_sync(cuda, mode, aniso, monkeyp
         real = getattr(tex_cuda, name)
 
         def call(*args):
-            before = tex_cuda.launches[name]
+            before = _launches(name)
             out = real(*args)
-            assert tex_cuda.launches[name] == before + 1
+            assert _launches(name) == before + 1
             # copies to the host would synchronise: keep the inputs on the card
             calls.append((name, [a.clone() if torch.is_tensor(a) else a for a in args], out))
             return out

@@ -57,27 +57,24 @@ def _scenes(kind: str):
 
 
 def check_against_pallas(kind: str):
-    """closest, closest_surface and any of the port's brute force against
-    one Pallas resolve launch (interpret mode; one compile per scene). The
-    Pallas ``any`` is the same kernel with every limit negated, so its
-    verdicts are those of the resolve launch on -|t_lim|."""
+    """closest and any of the port's brute force against the hits and
+    verdicts of one Pallas resolve launch (interpret mode; one compile per
+    scene). The Pallas ``any`` is the same kernel with every limit negated,
+    so its verdicts are those of the resolve launch on -|t_lim|."""
     js, ts = _scenes(kind)
     pt = make_pallas_tracer(js, interpret=True)
     o, d, lim, lane = _rays(kind)
     lim_any = -np.abs(lim)
-    jh, ja = pt.closest_surface(jnp.asarray(np.concatenate([o, o])),
-                                jnp.asarray(np.concatenate([d, d])), T_MIN, T_MAX,
-                                t_lim=jnp.asarray(np.concatenate([lim, lim_any])))
+    jh, _ = pt.closest_surface(jnp.asarray(np.concatenate([o, o])),
+                               jnp.asarray(np.concatenate([d, d])), T_MIN, T_MAX,
+                               t_lim=jnp.asarray(np.concatenate([lim, lim_any])))
     jany = np.asarray(jh.hit)[N_RAYS:]
     jh = jh._replace(**{k: getattr(jh, k)[:N_RAYS] for k in jh._fields})
-    ja = ja._replace(**{k: getattr(ja, k)[:N_RAYS] for k in ja._fields})
 
     tracer = make_tracer(ts)
     assert isinstance(tracer, Tracer)
     to, td, tl = torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(lim)
-    th, ta = tracer.closest_surface(to, td, T_MIN, T_MAX, t_lim=tl)
-    for a, b in zip(th, tracer.closest(to, td, T_MIN, T_MAX, t_lim=tl)):
-        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    th = tracer.closest(to, td, T_MIN, T_MAX, t_lim=tl)
     jhit, thit = np.asarray(jh.hit), th.hit.numpy()
     assert (jhit == thit).mean() >= 0.999, (jhit != thit).sum()
     # zero-limit and dead lanes never hit
@@ -91,15 +88,8 @@ def check_against_pallas(kind: str):
     np.testing.assert_allclose(th.t.numpy()[both], np.asarray(jh.t)[both], rtol=1e-5)
     np.testing.assert_allclose(th.u.numpy()[same], np.asarray(jh.u)[same], atol=1e-5, rtol=0)
     np.testing.assert_allclose(th.v.numpy()[same], np.asarray(jh.v)[same], atol=1e-5, rtol=0)
-    for k in ("nrm", "tan", "tan_w", "uv", "mat"):
-        np.testing.assert_allclose(getattr(ta, k).numpy()[same],
-                                   np.asarray(getattr(ja, k))[same],
-                                   atol=1e-6, rtol=0, err_msg=k)
-    np.testing.assert_allclose(ta.pos.numpy()[same], np.asarray(ja.pos)[same],
-                               atol=1e-4, rtol=1e-5)
-    # miss lanes: HitInfo t = 0, tri = -1, attributes zero
+    # miss lanes: HitInfo t = 0, tri = -1
     assert (th.t.numpy()[~thit] == 0).all() and (th.tri.numpy()[~thit] == -1).all()
-    assert (ta.nrm.numpy()[~thit] == 0).all() and (ta.mat.numpy()[~thit] == 0).all()
 
     tany = tracer.any(to, td, T_MIN, torch.from_numpy(np.abs(lim))).numpy()
     assert (jany == tany).mean() >= 0.999
@@ -400,7 +390,7 @@ def _caterpillar(n: int):
 def test_one_triangle_tree_and_deepest_tree():
     """A root that is a leaf becomes one record of that leaf twice; a tree of
     exactly WALK_STACK levels is walked, one level more is refused."""
-    from vkrt_tpu_torch.ops.cuda.trace import check_bvh, trace_kernel
+    from vkrt_tpu_torch.ops.cuda.trace import bvh_args, trace_kernel
     from vkrt_tpu_torch.ops.trace import WALK_STACK, trace_rays_bvh_ordered
 
     rng = np.random.default_rng(3)
@@ -429,12 +419,42 @@ def test_one_triangle_tree_and_deepest_tree():
     too_deep = _hand_bvh(*_caterpillar(WALK_STACK + 2)[:3], _caterpillar(WALK_STACK + 2)[3])
     assert too_deep.depth == WALK_STACK + 1
     with pytest.raises(ValueError, match="exceeds"):
-        check_bvh(too_deep)
+        bvh_args(too_deep)
     with pytest.raises(ValueError, match="exceeds"):
         trace_rays_bvh_ordered(too_deep, o, d, lim)
     _, ts = _scenes("box")
     with pytest.raises(ValueError, match="exceeds"):  # the wrapper, on the CPU too
         trace_kernel(too_deep, ts, o, d, lim)
+
+
+@pytest.mark.parametrize("wrapper", ["trace_kernel", "trace_ablate"])
+@pytest.mark.parametrize("fault", ["nodes_f64", "nodes_width", "tris_f64", "tris_width"])
+def test_cpu_wrappers_refuse_bad_tables(wrapper, fault):
+    """Kernels A's and D's wrappers refuse on the CPU the record tables
+    the card refuses: a table that is not f32 (``TypeError``) or not 16
+    (nodes) or 12 (tris) wide (``ValueError``). A strided table passes,
+    as the plain walks read any layout."""
+    from types import SimpleNamespace
+
+    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
+    from vkrt_tpu_torch.ops.cuda.trace_variants import trace_ablate
+
+    one = _hand_bvh(*_caterpillar(1)[:3], _caterpillar(1)[3])
+    _, ts = _scenes("box")
+    o, d = torch.zeros((4, 3)), torch.tensor([[0.0, 0.0, 1.0]]).repeat(4, 1)
+    lim = torch.full((4,), T_MAX)
+
+    def call(bvh):
+        if wrapper == "trace_kernel":
+            return trace_kernel(bvh, ts, o, d, lim)
+        return trace_ablate("count", SimpleNamespace(bvh=bvh), ts, o, d, lim)
+
+    table, kind = fault.split("_")
+    t = getattr(one, table)
+    bad = t.double() if kind == "f64" else torch.cat([t, t[:, :1]], 1)
+    with pytest.raises(TypeError if kind == "f64" else ValueError, match=f"bvh.{table}"):
+        call(one._replace(**{table: bad}))
+    call(one._replace(**{table: t.t().contiguous().t()}))
 
 
 @pytest.mark.parametrize("kind", ["box", "soup", "city"])

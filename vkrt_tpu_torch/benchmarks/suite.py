@@ -125,9 +125,10 @@ def run_sharded_bench(name, width, height, frames, depth, device, batches: int =
 
 def sharded_bench_rank(mesh, name, width, height, frames, depth, batches):
     """One rank of row 6. Returns {"rec": the row, "batches": [(ms/frame,
-    Mrays/s, rays/frame)] a batch, "launches": every rank's kernel A and B
-    launches over the warm-up and the batches, "accum": the last batch's
-    accumulator in scanline order (N, 3)}."""
+    Mrays/s, rays/frame)] a batch, "launches": every rank's launches by
+    entry point (``device.counts``) over the warm-up and the batches,
+    "accum": the last batch's accumulator in scanline order (N, 3)}."""
+    from vkrt_tpu_torch import device as kdev
     from vkrt_tpu_torch.config import RenderSettings
     from vkrt_tpu_torch.ops.trace import make_tracer
     from vkrt_tpu_torch.parallel import render
@@ -141,7 +142,7 @@ def sharded_bench_rank(mesh, name, width, height, frames, depth, batches):
         samples=mesh.shape["spp"], depth=depth, corr=RenderSettings().corr_sampler)
     cam = Camera().matrices(width, height, mesh.device)
     clear = (1.0, 1.0, 1.0, 1.0)
-    render.reset_launch_counts()
+    kdev.reset_counts()
     accum, rays = step(cam, 0, render.zeros_accum(mesh, width, height), clear)  # warm-up
     float(rays)
     timed = []
@@ -156,7 +157,8 @@ def sharded_bench_rank(mesh, name, width, height, frames, depth, batches):
         synchronize(mesh.device)
         dt = time.perf_counter() - t0
         timed.append((dt / frames * 1e3, float(rays) / dt / 1e6, float(rays) / frames))
-    launches = gather_objects(render.launch_counts(), mesh)
+    launches = gather_objects({entry: c["launches"] for entry, c in kdev.counts.items()},
+                              mesh)
     image = all_gather_rows(accum, mesh)[inv_perm]
     _assert_finite_image(name, image.cpu().numpy())
     ms, mrays, _ = timed[-1]

@@ -6,11 +6,19 @@ the sources and flags, and load with ``ctypes``. Each source compiles in
 its own ``nvcc`` process, all started together, and one ``nvcc`` links the
 objects. Each C entry point takes plain pointers and the CUDA stream and
 returns ``cudaGetLastError()``; ``check`` turns a non-zero code into an
-exception. ``launch`` calls an entry point with the tensor's card made
-current: the runtime launches on the current card, so a tensor on another
-card than the current one would otherwise get its kernel, and its stream,
-on the wrong card. Nothing here runs at import: the CPU tests import every
-module of the package on a machine with no ``nvcc``.
+exception.
+
+Every kernel wrapper takes the same path to its kernel: ``check_args``
+refuses the tensors the kernel cannot read, then ``launch`` calls the entry
+point with the tensor's card made current (the runtime launches on the
+current card, so a tensor on another card than the current one would
+otherwise get its kernel, and its stream, on the wrong card) and counts
+the launch and its lanes in ``counts``, by entry point, and kernel B's
+albedo instantiation also in a row of its own. A wrapper whose plain CPU
+version takes only what the kernel takes refuses there with
+``check_tensors``, the device-independent part of ``check_args``. Nothing here runs at import: the
+CPU tests import every module of the package on a machine with no
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -144,6 +152,21 @@ _SIGNATURES = {
         _P,                  # stream
     ],
 }
+
+
+# the row kernel B's albedo instantiation counts in, besides vkrt_shade's
+SHADE_ALBEDO = "vkrt_shade.albedo"
+
+# launches and lanes handed to each launching entry point (and to the
+# instantiation rows) since the last reset_counts(), successful launches only
+counts = {name: {"launches": 0, "lanes": 0} for name in (
+    *(n for n in _SIGNATURES if not n.endswith("_info")), SHADE_ALBEDO)}
+
+
+def reset_counts() -> None:
+    """Set every entry point's counts to 0."""
+    for c in counts.values():
+        c["launches"] = c["lanes"] = 0
 
 
 def select(name: str = "cuda") -> torch.device:
@@ -289,9 +312,49 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def launch(fn: str, device: torch.device, *args) -> None:
+def check_tensors(what: str, want, strided=()) -> None:
+    """Refuse tensors unless each is what a kernel reads, on any device.
+    ``want``: (name, tensor, dtype or tuple of dtypes, shape) entries, the
+    shape a tuple whose None entries take any length, or None for any
+    shape. Every dtype is checked first (``TypeError``), then every shape
+    and that each tensor is contiguous (the names in ``strided`` may be
+    views; ``ValueError``). Reads no tensor's data."""
+    for name, t, dtypes, _ in want:
+        dtypes = dtypes if isinstance(dtypes, tuple) else (dtypes,)
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{what}: {name} is {t.dtype}, want {names}")
+    for name, t, _, shape in want:
+        if shape is not None and (t.ndim != len(shape) or any(
+                w is not None and s != w for s, w in zip(t.shape, shape))):
+            want_shape = str(tuple(shape)).replace("None", "*")
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)}, want {want_shape}")
+        if name not in strided and not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def check_args(what: str, want, device=None, strided=()) -> torch.device:
+    """``check_tensors``, then that every tensor is on ``device`` (by
+    default the first tensor's), a CUDA device (``ValueError``): the
+    refusals of a launch. Returns the device."""
+    check_tensors(what, want, strided)
+    device = torch.device(device) if device is not None else want[0][1].device
+    if device.type != "cuda":
+        raise ValueError(f"{what}: {device} is not a CUDA device")
+    for name, t, _, _ in want:
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, the launch on {device}")
+    return device
+
+
+def launch(fn: str, device: torch.device, *args, lanes: int, also: str | None = None) -> None:
     """Call the C entry point ``fn`` with ``args`` and the current stream
     of ``device``, with ``device`` made the current card for the call; raise
-    on a non-zero ``cudaGetLastError()``."""
+    on a non-zero ``cudaGetLastError()``, else count the launch and its
+    ``lanes`` in ``counts[fn]``, and in ``counts[also]`` where the caller
+    names the instantiation it launched (``SHADE_ALBEDO``)."""
     with torch.cuda.device(device):
         check(fn, getattr(kernels(), fn)(*args, stream_ptr(device)))
+    for row in (fn, also) if also else (fn,):
+        counts[row]["launches"] += 1
+        counts[row]["lanes"] += lanes

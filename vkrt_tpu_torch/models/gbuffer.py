@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from vkrt_tpu_torch.models.shading import surface_at_hit, surface_from_attrs
+from vkrt_tpu_torch.models.shading import surface_at_hit
 from vkrt_tpu_torch.ops import brdf as brdf_ops
 from vkrt_tpu_torch.ops.intersect import T_MAX, T_MIN
 from vkrt_tpu_torch.ops.nrd import pack_normal_and_roughness
@@ -156,13 +156,7 @@ def gbuffer_pass(scene, tracer, cam, width: int, height: int, clear_color,
     origin, direction = generate_rays(
         cam, width, height, torch.full((n, 2), 0.5, dtype=torch.float32, device=device), pix=pix
     )
-    # a tracer that resolves attributes in its trace (the JAX package's
-    # Pallas tracer) hands them over; the port's tracers gather after it
-    use_resolve = bool(getattr(tracer, "resolves_attrs", False))
-    if use_resolve:
-        hi, at = tracer.closest_surface(origin, direction, T_MIN, T_MAX)
-    else:
-        hi = tracer.closest(origin, direction, T_MIN, T_MAX)
+    hi = tracer.closest(origin, direction, T_MIN, T_MAX)
     miss = ~hi.hit
 
     uv_grads = lod = None
@@ -171,9 +165,8 @@ def gbuffer_pass(scene, tracer, cam, width: int, height: int, clear_color,
             uv_grads = _uv_grads(scene, cam, width, height, pix, direction, hi)
         else:
             lod = _iso_lod(scene, cam, height, hi)
-    surf = (surface_from_attrs(scene, at, lod=lod, uv_grads=uv_grads) if use_resolve
-            else surface_at_hit(scene, torch.clamp_min(hi.tri, 0), hi.u, hi.v, direction,
-                                lod=lod, uv_grads=uv_grads))
+    surf = surface_at_hit(scene, torch.clamp_min(hi.tri, 0), hi.u, hi.v, direction,
+                          lod=lod, uv_grads=uv_grads)
 
     v = normalize(-direction)
     # the frag shader uses the raw factors: the path's clamps do not apply

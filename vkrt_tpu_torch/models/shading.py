@@ -85,18 +85,6 @@ def surface_at_hit(scene, tri, u, v, ray_dir, lod=None, uv_grads=None) -> Surfac
                              world_bin, lod, uv_grads)
 
 
-def surface_from_attrs(scene, attrs, lod=None, uv_grads=None) -> SurfaceSample:
-    """SurfaceSample from resolved ``HitAttrs`` (``ops/trace.py``): the
-    normalise, Gram-Schmidt and handedness of ``surface_at_hit`` and the
-    same material evaluation. Miss lanes carry zeros; callers mask them."""
-    world_nrm = normalize(attrs.nrm)
-    world_tag = normalize(attrs.tan)
-    world_tag = normalize(world_tag - dot(world_tag, world_nrm, keepdims=True) * world_nrm)
-    world_bin = attrs.tan_w[:, None] * cross(world_nrm, world_tag)
-    return _material_surface(scene, attrs.mat, attrs.uv, attrs.pos, world_nrm, world_tag,
-                             world_bin, lod, uv_grads)
-
-
 def _material_surface(scene, mat_id, uv, world_pos, world_nrm, world_tag,
                       world_bin, lod, uv_grads=None) -> SurfaceSample:
     """The material and texture half of the rchit stage (rchit:80-113).

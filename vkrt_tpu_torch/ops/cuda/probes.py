@@ -13,7 +13,7 @@
   with 1e-7 at these magnitudes).
 
 Each wrapper launches its kernel on CUDA tensors (or raises) and runs the
-plain version on CPU tensors, and counts its launches.
+plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from vkrt_tpu_torch import device as dev
-from vkrt_tpu_torch.ops.cuda.trace import check_rays
+from vkrt_tpu_torch.ops.cuda.trace import ray_args
 from vkrt_tpu_torch.ops.trace import RayHits
 
 FLOOR_THREADS = (128, 256, 512, 1024)
@@ -52,7 +52,8 @@ def floor_kernel(o, d, t_lim, threads: int = 256) -> RayHits:
         return floor_plain(o, d, t_lim)
     if threads not in FLOOR_THREADS:
         raise ValueError(f"threads must be one of {FLOOR_THREADS}, got {threads}")
-    n = check_rays("floor_kernel", o, d, t_lim)
+    n = o.shape[0]
+    dev.check_args("floor_kernel", ray_args(o, d, t_lim), strided=("o", "d"))
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
@@ -62,13 +63,9 @@ def floor_kernel(o, d, t_lim, threads: int = 256) -> RayHits:
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, threads,
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), lanes=n,
     )
-    floor_kernel.launches += 1
     return RayHits(t, tri, u, v)
-
-
-floor_kernel.launches = 0
 
 
 def fma_flops(x: torch.Tensor, k: int) -> int:
@@ -98,13 +95,8 @@ def fma_peak(x: torch.Tensor, k: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return fma_peak_plain(x, k)
     _check_k(k)
-    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"fma_peak: want contiguous f32 on cuda, got {x.dtype} on {x.device}")
+    dev.check_args("fma_peak", [("x", x, torch.float32, None)])
     out = torch.empty_like(x)
     dev.launch("vkrt_fma_peak", x.device, x.data_ptr(), out.data_ptr(), x.numel(),
-               k // FMA_UNROLL)
-    fma_peak.launches += 1
+               k // FMA_UNROLL, lanes=x.numel())
     return out
-
-
-fma_peak.launches = 0

@@ -5,7 +5,7 @@ correlated draw tables, one launch each.
 PyTorch rounds are the plain version these are held to bit for bit
 (``tests/test_torch_rng_gpu.py``). The host integers (the second TEA word,
 the table's seed and depth) are launch scalars: nothing is uploaded, so
-the call does not synchronise. Each wrapper counts its launches.
+the call does not synchronise.
 """
 
 from __future__ import annotations
@@ -23,18 +23,14 @@ def tea(val0: torch.Tensor, val1: int, rounds: int) -> torch.Tensor:
     """TEA of (the low 32 bits of each ``val0``, ``val1``) over ``rounds``
     rounds: the int32 bits of the uint32 hash, shaped like ``val0`` (int64
     or int32 on the card)."""
-    if val0.dtype not in (torch.int64, torch.int32):
-        raise TypeError(f"rng tea: val0 is {val0.dtype}, want int64 or int32")
-    if val0.device.type != "cuda":
-        raise ValueError(f"rng tea: {val0.device} is not a CUDA device")
+    device = dev.check_args("rng tea", [("val0", val0, (torch.int64, torch.int32), None)],
+                            strided=("val0",))
     val0 = val0.contiguous()
-    out = torch.empty(val0.shape, dtype=torch.int32, device=val0.device)
+    out = torch.empty(val0.shape, dtype=torch.int32, device=device)
     n = val0.numel()
     if n:
-        dev.launch("vkrt_rng_tea", val0.device, val0.data_ptr(),
-                   int(val0.dtype == torch.int64), int(val1) & MASK32, int(rounds), n,
-                   out.data_ptr())
-        tea.launches += 1
+        dev.launch("vkrt_rng_tea", device, val0.data_ptr(), int(val0.dtype == torch.int64),
+                   int(val1) & MASK32, int(rounds), n, out.data_ptr(), lanes=n)
     return out
 
 
@@ -43,9 +39,7 @@ def table(n_rows: int, corr_seed: int, depth: int, device, n_lanes: int | None =
     """One bounce's correlated draws: the (n_rows, 8) f32 table, or with
     ``n_lanes`` its per-lane (n_lanes, 6) view, each ``block`` consecutive
     lanes sharing one row (``n_rows`` = ceil(n_lanes / block))."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        raise ValueError(f"rng table: {device} is not a CUDA device")
+    device = dev.check_args("rng table", [], device=device)
     if n_lanes is None:
         out = torch.empty((n_rows, TABLE_COLS), dtype=torch.float32, device=device)
         ptrs = (out.data_ptr(), None)
@@ -56,10 +50,5 @@ def table(n_rows: int, corr_seed: int, depth: int, device, n_lanes: int | None =
         ptrs = (None, out.data_ptr())
     if n_rows:
         dev.launch("vkrt_rng_table", device, int(corr_seed) & MASK32, int(depth) & MASK32,
-                   n_rows, *ptrs, n_lanes or 0, block)
-        table.launches += 1
+                   n_rows, *ptrs, n_lanes or 0, block, lanes=n_lanes or n_rows)
     return out
-
-
-tea.launches = 0
-table.launches = 0

@@ -40,7 +40,7 @@ import torch
 
 from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.models.shading import clamp_bounds
-from vkrt_tpu_torch.ops.rng import CORR_BLOCK, block_table_rep, rnd
+from vkrt_tpu_torch.ops.rng import CORR_BLOCK, block_uniform_table, rnd
 from vkrt_tpu_torch.ops.texture import sample_texture_plain
 from vkrt_tpu_torch.ops.trace import interp_corners
 from vkrt_tpu_torch.scene import SceneTensors, scene_base_only_textured, scene_is_textured
@@ -154,7 +154,7 @@ def shade_plain(carry, seed, rays, hit, sh_tri, scene: SceneTensors,
     ``hit``: (t, tri, u, v) of ``rays`` from the trace kernel. ``sh_tri``:
     the previous bounce's shadow-trace triangle ids (None when
     ``p.first``). ``corr_tab``: (G, 8) per-block shared uniforms
-    (``ops.rng.block_table_rep``) or None."""
+    (``ops.rng.block_uniform_table``) or None."""
     n = seed.shape[0]
     n_lights = light_tab.shape[0]
 
@@ -436,14 +436,12 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
     if seed.device.type == "cpu":
         return shade_plain(carry, seed, rays, hit, sh_tri, scene, mat_tab,
                            light_tab, corr_tab, p)
-    if seed.device.type != "cuda":
-        raise ValueError(f"shade: unsupported device {seed.device}")
     n = seed.shape[0]
     n_tris = scene.tri_mat.shape[0]
     t_hit, tri, hu, hv = hit
     want = [
-        ("carry", carry, torch.float32, (CARRY_COLS, n)),
         ("seed", seed, torch.int32, (n,)),
+        ("carry", carry, torch.float32, (CARRY_COLS, n)),
         ("rays", rays, torch.float32, (RAY_COLS, n)),
         ("hit.t", t_hit, torch.float32, (n,)),
         ("hit.tri", tri, torch.int32, (n,)),
@@ -452,8 +450,8 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
         ("corner_normal", scene.corner_normal, torch.float32, (n_tris, 3, 3)),
         ("corner_tangent", scene.corner_tangent, torch.float32, (n_tris, 3, 4)),
         ("tri_mat", scene.tri_mat, torch.int32, (n_tris,)),
-        ("mat_tab", mat_tab, torch.float32, (mat_tab.shape[0], 8)),
-        ("light_tab", light_tab, torch.float32, (light_tab.shape[0], 8)),
+        ("mat_tab", mat_tab, torch.float32, (None, 8)),
+        ("light_tab", light_tab, torch.float32, (None, 8)),
     ]
     if not p.first:
         if sh_tri is None:
@@ -470,12 +468,7 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
             ("tex_rgba", scene.tex_rgba, torch.float32, (k_tex, tex_h, tex_w, 4)),
             ("tex_size", scene.tex_size, torch.int32, (k_tex, 2)),
         ]
-    for name, t, dt, shape in want:
-        if t.dtype != dt or tuple(t.shape) != shape:
-            raise ValueError(f"shade: {name} is {t.dtype} {tuple(t.shape)}, "
-                             f"want {dt} {shape}")
-        if t.device != seed.device or not t.is_contiguous():
-            raise ValueError(f"shade: {name} must be contiguous on {seed.device}")
+    dev.check_args("shade", want)
     if light_tab.shape[0] < 1 or mat_tab.shape[0] < 1:
         raise ValueError("shade: the scene needs at least one material and one light")
     out = ShadeOut(
@@ -501,15 +494,10 @@ def shade(carry, seed, rays, hit, sh_tri, scene: SceneTensors, mat_tab,
         p.hitdist_weight, int(p.hitdist_accumulate), p.t_min, p.t_max,
         *(float(c) for c in p.clear), p.clamp_lo, p.clamp_hi,
         out.carry.data_ptr(), out.seed.data_ptr(),
-        out.next_rays.data_ptr(), out.shadow_rays.data_ptr(),
+        out.next_rays.data_ptr(), out.shadow_rays.data_ptr(), lanes=n,
+        also=dev.SHADE_ALBEDO if p.albedo else None,
     )
-    shade.launches += 1
-    shade.albedo_launches += int(p.albedo)
     return out
-
-
-shade.launches = 0         # every launch of kernel B
-shade.albedo_launches = 0  # those of its albedo instantiation
 
 
 # --- the bounce loop -------------------------------------------------------------
@@ -570,7 +558,7 @@ def bounce_chain_packed(
     first = True
     sh_tri = None
     for d in range(start_depth, depth):
-        corr_tab = (block_table_rep(total // CORR_BLOCK, corr_seed, d, device=device)
+        corr_tab = (block_uniform_table(total // CORR_BLOCK, corr_seed, d, device=device)
                     if corr else None)
         hit = tracer.trace_block(ray_cur, t_min)
         p = ShadeParams(

@@ -395,42 +395,32 @@ def refit_bvh(bvh: Bvh, v0, e1, e2, moved) -> Bvh:
 refit_bvh.rows = {"records": 0, "tris": 0, "threaded": 0}
 
 
-def _check_f32(name, t, shape):
-    if t.dtype != torch.float32 or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: want f32 {tuple(shape)}, got {t.dtype} {tuple(t.shape)}")
-
-
-def check_rays(name: str, o, d, t_lim, tables=()) -> int:
-    """Validate a CUDA launch's rays ((N,3) o and d, maybe strided; (N,)
-    contiguous t_lim) and contiguous tables on their device. Returns N."""
-    if o.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {o.device}")
+def ray_args(o, d, t_lim) -> list:
+    """``device.check_args`` entries of a launch's rays: (N,3) f32 o and d,
+    which may be strided views (``strided=("o", "d")``), and (N,) f32
+    t_lim."""
     n = o.shape[0]
-    _check_f32("o", o, (n, 3))
-    _check_f32("d", d, (n, 3))
-    _check_f32("t_lim", t_lim, (n,))
-    if not t_lim.is_contiguous():
-        raise ValueError("t_lim must be contiguous")
-    for t in (d, t_lim) + tuple(tables):
-        if t.device != o.device:
-            raise ValueError(f"{name}: tensor on {t.device}, rays on {o.device}")
-    if not all(t.is_contiguous() for t in tables):
-        raise ValueError(f"{name}: scene tables must be contiguous")
-    return n
+    return [("o", o, torch.float32, (n, 3)), ("d", d, torch.float32, (n, 3)),
+            ("t_lim", t_lim, torch.float32, (n,))]
 
 
-def check_bvh(bvh: Bvh):
-    """The record tables kernels A and D walk. A tree deeper than the
-    walk's stack is refused (on the CPU too, so that both devices take the
-    same scenes)."""
-    _check_f32("bvh.nodes", bvh.nodes, (bvh.nodes.shape[0], 16))
-    _check_f32("bvh.tris", bvh.tris, (bvh.tris.shape[0], 12))
+def bvh_args(bvh: Bvh) -> list:
+    """``device.check_args`` entries of the record tables kernels A and D
+    walk. An empty tree, or one deeper than the walk's stack, is refused
+    here, and the wrappers' CPU branches check the entries' dtypes and
+    widths (``device.check_tensors`` with ``CPU_TABLES``), so that both
+    devices take the same scenes."""
     if bvh.nodes.shape[0] < 1 or bvh.tris.shape[0] < 1:
         raise ValueError("empty BVH")
     if bvh.depth > WALK_STACK:
         raise ValueError(f"tree depth {bvh.depth} exceeds the walk's "
                          f"{WALK_STACK}-entry stack")
-    return (bvh.nodes, bvh.tris)
+    return [("bvh.nodes", bvh.nodes, torch.float32, (None, 16)),
+            ("bvh.tris", bvh.tris, torch.float32, (None, 12))]
+
+
+# the plain CPU walks read the record tables in any layout
+CPU_TABLES = ("bvh.nodes", "bvh.tris")
 
 
 def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
@@ -438,14 +428,15 @@ def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
     """Trace (N,3) o and d with (N,) limits; the kernel's contract (see
     ``ops/trace.py``). ``o`` and ``d`` may be strided views, e.g. rows of a
     (7, N) ray block transposed; ``t_lim`` must be contiguous. Counts the
-    card's launches in ``trace_kernel.launches`` and the lanes handed to
-    it, on either device, in ``trace_kernel.lanes``."""
+    lanes handed to it, on either device, in ``trace_kernel.lanes``."""
+    tables = bvh_args(bvh)
+    n = o.shape[0]
     if o.device.type == "cpu":
-        check_bvh(bvh)
-        trace_kernel.lanes += o.shape[0]
+        dev.check_tensors("trace_kernel", tables, strided=CPU_TABLES)
+        trace_kernel.lanes += n
         return trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2,
                                      o, d, t_lim, t_min)
-    n = check_rays("trace_kernel", o, d, t_lim, check_bvh(bvh))
+    dev.check_args("trace_kernel", ray_args(o, d, t_lim) + tables, strided=("o", "d"))
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     tri = torch.empty(n, dtype=torch.int32, device=o.device)
     u = torch.empty(n, dtype=torch.float32, device=o.device)
@@ -456,14 +447,12 @@ def trace_kernel(bvh: Bvh, scene: SceneTensors, o, d, t_lim,
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min), int(any_hit),
-        t_out.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
+        t_out.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), lanes=n,
     )
-    trace_kernel.launches += 1
     trace_kernel.lanes += n
     return RayHits(t_out, tri, u, v)
 
 
-trace_kernel.launches = 0
 trace_kernel.lanes = 0  # padded and dead lanes included: what a launch walks
 
 

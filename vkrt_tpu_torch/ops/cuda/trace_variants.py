@@ -26,9 +26,9 @@ structures (``csrc/trace_variants.cu``).
 ``trace_threaded`` launches ``threaded`` alone over a tree's threaded
 table and triangle records (``ops/cuda/trace.py::threaded_tables``), with
 no ``ProbeTables``: it is what ``LbvhTracer``, the ``bvh`` backend, runs
-over the LBVH built on the device (``bvh/lbvh.py``). Its launches count in
-``trace_variant.launches``; its plain version is ``trace_rays_bvh`` over
-the same tables.
+over the LBVH built on the device (``bvh/lbvh.py``). Its launches count
+under ``vkrt_trace_variant`` in ``device.counts``; its plain version is
+``trace_rays_bvh`` over the same tables.
 
 The TPU variants ``dynK`` and ``bitK`` measured the cost of Mosaic's loop
 iterations and have no counterpart here.
@@ -58,7 +58,7 @@ from vkrt_tpu_torch import device as dev
 from vkrt_tpu_torch.bvh.lbvh import FlatBVH, build_lbvh
 from vkrt_tpu_torch.ops.cuda.probes import miss_record
 from vkrt_tpu_torch.ops.cuda.trace import (
-    check_bvh, check_rays, node_depths, pack_bvh4_nodes, pack_tris, threaded_tables,
+    CPU_TABLES, bvh_args, node_depths, pack_bvh4_nodes, pack_tris, ray_args, threaded_tables,
 )
 from vkrt_tpu_torch.ops.intersect import T_MIN
 from vkrt_tpu_torch.ops.trace import (
@@ -138,15 +138,17 @@ def trace_ablate(mode: str, tables: ProbeTables, scene: SceneTensors, o, d,
     if mode not in ABLATE_MODES:
         raise ValueError(f"unknown mode {mode!r} (one of {sorted(ABLATE_MODES)})")
     bvh = tables.bvh
-    tabs = check_bvh(bvh)
+    tabs = bvh_args(bvh)
     if o.device.type == "cpu":
+        dev.check_tensors("trace_ablate", tabs, strided=CPU_TABLES)
         if mode == "count":
             return trace_rays_bvh_ordered(bvh, o, d, t_lim, t_min, any_hit, count=True)
         if mode == "full":
             return trace_rays_bruteforce(scene.tri_v0, scene.tri_e1, scene.tri_e2,
                                          o, d, t_lim, t_min), None
         return miss_record(t_lim), None
-    n = check_rays("trace_ablate", o, d, t_lim, tabs)
+    n = o.shape[0]
+    dev.check_args("trace_ablate", ray_args(o, d, t_lim) + tabs, strided=("o", "d"))
     t, tri, u, v = _hit_buffers(n, o.device)
     counts = (torch.empty((2, n), dtype=torch.int32, device=o.device)
               if mode == "count" else None)
@@ -158,21 +160,18 @@ def trace_ablate(mode: str, tables: ProbeTables, scene: SceneTensors, o, d,
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min), int(any_hit),
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        None if counts is None else counts.data_ptr(),
+        None if counts is None else counts.data_ptr(), lanes=n,
     )
-    trace_ablate.launches += 1
     return RayHits(t, tri, u, v), (None if counts is None else BvhCounts(counts[0], counts[1]))
 
 
-trace_ablate.launches = 0
-
-
-def _check_tables(tables):
-    """(name, tensor, width) triples: each an f32 (n >= 1, width) table."""
-    for what, t, width in tables:
-        if t.dtype != torch.float32 or t.ndim != 2 or t.shape[1] != width or t.shape[0] < 1:
-            raise ValueError(f"{what}: want f32 (n >= 1, {width}), got {t.dtype} "
-                             f"{tuple(t.shape)}")
+def _table_args(**tables) -> list:
+    """``device.check_args`` entries of f32 (n >= 1, width) tables, given as
+    name -> (tensor, width)."""
+    for name, (t, _) in tables.items():
+        if t.ndim and t.shape[0] < 1:
+            raise ValueError(f"{name}: an empty table")
+    return [(name, t, torch.float32, (None, width)) for name, (t, width) in tables.items()]
 
 
 def parse_variant(name: str):
@@ -211,9 +210,10 @@ def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
         return trace_rays_bruteforce(scene.tri_v0[tris], scene.tri_e1[tris],
                                      scene.tri_e2[tris], o, d, t_lim, t_min)
     tabs = (tables.threaded, wide.nodes, tables.cut_boxes, wide.tris, tables.scene_tris)
-    _check_tables(zip(("threaded", "wide", "cut_boxes", "tris", "scene_tris"), tabs,
-                      (8, 32, 8, 12, 12)))
-    n = check_rays("trace_variant", o, d, t_lim, tabs)
+    n = o.shape[0]
+    dev.check_args("trace_variant", ray_args(o, d, t_lim) + _table_args(
+        threaded=(tabs[0], 8), wide=(tabs[1], 32), cut_boxes=(tabs[2], 8), tris=(tabs[3], 12),
+        scene_tris=(tabs[4], 12)), strided=("o", "d"))
     t, tri, u, v = _hit_buffers(n, o.device)
     counts = torch.empty((3, n), dtype=torch.int32, device=o.device) if count else None
     dev.launch(
@@ -225,14 +225,10 @@ def trace_variant(name: str, tables: ProbeTables, scene: SceneTensors, o, d,
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min),
         t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-        None if counts is None else counts.data_ptr(),
+        None if counts is None else counts.data_ptr(), lanes=n,
     )
-    trace_variant.launches += 1
     hits = RayHits(t, tri, u, v)
     return (hits, WideCounts(*counts)) if count else hits
-
-
-trace_variant.launches = 0
 
 
 def trace_threaded(nodes, tris, o, d, t_lim, t_min: float = T_MIN,
@@ -248,8 +244,9 @@ def trace_threaded(nodes, tris, o, d, t_lim, t_min: float = T_MIN,
         t_lim = -t_lim.abs()
     if o.device.type == "cpu":
         return trace_rays_bvh(nodes, None, o, d, t_lim, t_min, tris=tris)
-    _check_tables((("nodes", nodes, 8), ("tris", tris, 12)))
-    n = check_rays("trace_threaded", o, d, t_lim, (nodes, tris))
+    n = o.shape[0]
+    dev.check_args("trace_threaded", ray_args(o, d, t_lim) + _table_args(
+        nodes=(nodes, 8), tris=(tris, 12)), strided=("o", "d"))
     t, tri, u, v = _hit_buffers(n, o.device)
     # threaded reads nodes and tris alone: the other tables' pointers are
     # never dereferenced
@@ -261,9 +258,8 @@ def trace_threaded(nodes, tris, o, d, t_lim, t_min: float = T_MIN,
         o.data_ptr(), o.stride(0), o.stride(1),
         d.data_ptr(), d.stride(0), d.stride(1),
         t_lim.data_ptr(), n, float(t_min),
-        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), None,
+        t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(), None, lanes=n,
     )
-    trace_variant.launches += 1
     return RayHits(t, tri, u, v)
 
 

@@ -144,14 +144,6 @@ def block_uniform_table_plain(n_blocks: int, corr_seed, depth: int,
     return torch.stack(us, dim=1)
 
 
-def block_table_rep(n_blocks: int, corr_seed, depth: int,
-                    device=None) -> torch.Tensor:
-    """The table the shade step reads: one row per CORR_BLOCK lanes. The
-    JAX package's VKRT_CORR_REP sweep knob (consecutive blocks sharing a
-    row) is 1 by default and not ported."""
-    return block_uniform_table(n_blocks, corr_seed, depth, device)
-
-
 @labelled("rng")
 def corr_draws(n: int, corr_seed, depth: int, block: int = CORR_BLOCK,
                device=None) -> torch.Tensor:

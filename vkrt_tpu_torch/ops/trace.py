@@ -49,18 +49,6 @@ class HitInfo(NamedTuple):
     v: torch.Tensor    # (N,)
 
 
-class HitAttrs(NamedTuple):
-    """Interpolated shading attributes of the closest hit. Raw
-    interpolants (normal/tangent unnormalized), all zero on miss lanes."""
-
-    pos: torch.Tensor    # (N,3) o + t*d
-    nrm: torch.Tensor    # (N,3) barycentric corner normal
-    tan: torch.Tensor    # (N,3) barycentric corner tangent xyz
-    tan_w: torch.Tensor  # (N,)  corner-0 tangent handedness
-    uv: torch.Tensor     # (N,2)
-    mat: torch.Tensor    # (N,) int32 material id
-
-
 class RayHits(NamedTuple):
     """The trace kernel's output: on a miss t = |t_lim|, tri = -1, u = v = 0."""
 
@@ -474,27 +462,6 @@ def interp_corners(corner, tri, u, v):
             + v[:, None] * (c[:, 2] - c[:, 0]))
 
 
-def resolve_attrs(scene: SceneTensors, orig, direction, h: RayHits) -> HitAttrs:
-    """The winner's shading attributes by a gather after the trace (the GPU
-    gathers per lane; the TPU kernel resolved them in VMEM)."""
-    hit = h.tri >= 0
-    safe = torch.where(hit, h.tri, torch.zeros_like(h.tri))
-    m = hit[:, None]
-
-    def masked(x):
-        return torch.where(m if x.ndim == 2 else hit, x, torch.zeros_like(x))
-
-    pos = orig + h.t[:, None] * direction
-    return HitAttrs(
-        pos=masked(pos),
-        nrm=masked(interp_corners(scene.corner_normal, safe, h.u, h.v)),
-        tan=masked(interp_corners(scene.corner_tangent[:, :, :3], safe, h.u, h.v)),
-        tan_w=masked(scene.corner_tangent[safe.long(), 0, 3]),
-        uv=masked(interp_corners(scene.corner_uv, safe, h.u, h.v)),
-        mat=masked(scene.tri_mat[safe.long()]),
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class Tracer:
     """Brute-force tracer bound to one scene (the CPU oracle)."""
@@ -528,12 +495,6 @@ class Tracer:
         """Closest hit. ``t_lim``: optional per-ray tMax override."""
         return _hit_info(self.trace(orig, direction,
                                     self._lim(orig, t_max, t_lim), t_min))
-
-    def closest_surface(self, orig, direction, t_min, t_max, t_lim=None):
-        """Closest hit + interpolated shading attributes:
-        (HitInfo, HitAttrs)."""
-        h = self.trace(orig, direction, self._lim(orig, t_max, t_lim), t_min)
-        return _hit_info(h), resolve_attrs(self.scene, orig, direction, h)
 
     def any(self, orig, direction, t_min, t_max) -> torch.Tensor:
         """Any-hit (shadow/visibility); ``t_max`` may be per-ray. Limits

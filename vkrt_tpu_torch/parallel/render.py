@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from vkrt_tpu_torch import device as kdev
 from vkrt_tpu_torch.models.pathtracer import accumulate, trace_pixels
 from vkrt_tpu_torch.ops.rng import MASK32, tea
 from vkrt_tpu_torch.parallel.mesh import (
@@ -194,23 +195,6 @@ def render_sharded_hybrid(scene, tracer, cams, mesh: RenderMesh, *, width: int, 
     return images, float(rays)
 
 
-def launch_counts() -> dict:
-    """Kernel A's and B's launch counters in this process."""
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
-
-    return {"trace": trace_kernel.launches, "shade": shade.launches,
-            "shade_albedo": shade.albedo_launches}
-
-
-def reset_launch_counts() -> None:
-    from vkrt_tpu_torch.ops.cuda.shade import shade
-    from vkrt_tpu_torch.ops.cuda.trace import trace_kernel
-
-    trace_kernel.launches = trace_kernel.lanes = 0
-    shade.launches = shade.albedo_launches = 0
-
-
 # --- rank functions (``mesh.launch`` spawns them by name) --------------------
 
 
@@ -257,11 +241,11 @@ def run_jobs(mesh: RenderMesh, jobs):
     * "path" (``render_sharded``) and "hybrid" (``render_sharded_hybrid``):
       ``scene`` (a ``scene_for`` spec), ``backend``, ``cameras``
       (``Camera``s: one, or one a frame), the render function's keyword
-      arguments, and for path mode ``frames``. The kernel launch counters
-      are set to 0 before the job and read after it. Result: the gathered
-      images, the rays, the seconds the render took on this rank's host
-      clock (the device synchronised around it), every rank's launch
-      counts and the backend;
+      arguments, and for path mode ``frames``. ``device.counts`` is set to
+      0 before the job and read after it. Result: the gathered images, the
+      rays, the seconds the render took on this rank's host clock (the
+      device synchronised around it), every rank's launches by entry point
+      and the backend;
     * "denoise" (``denoise_sharded``): ``args``, its arguments after the
       mesh. Result: its (filtered, state).
 
@@ -285,7 +269,7 @@ def run_jobs(mesh: RenderMesh, jobs):
         tracer = make_tracer(scene, job.pop("backend", "auto"))
         w, h = job["width"], job["height"]
         cams = [c.matrices(w, h, mesh.device) for c in job.pop("cameras")]
-        reset_launch_counts()
+        kdev.reset_counts()
         synchronize(mesh.device)
         t0 = time.perf_counter()
         if kind == "path":
@@ -296,7 +280,8 @@ def run_jobs(mesh: RenderMesh, jobs):
             res = {"images": images, "rays": rays}
         synchronize(mesh.device)
         res["seconds"] = time.perf_counter() - t0
-        res["launches"] = gather_objects(launch_counts(), mesh)
+        res["launches"] = gather_objects(
+            {entry: c["launches"] for entry, c in kdev.counts.items()}, mesh)
         res["backend"] = mesh.backend
         out.append(res)
     return out
