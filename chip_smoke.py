@@ -69,11 +69,14 @@ Phases, each raising on failure (non-zero exit, no ``ok`` line):
    denoiser, correlated sampler on, clear (1,1,1,1), the camera at
    ``orbit_camera(k / 8, radius=300, height=48)`` before the k-th frame of
    the warm-up and of each batch -- timed as 4b, with the counters growing
-   by 6 trace and 2 (albedo) shade launches a frame: the denoiser launches
-   no kernel of its own. Then the frame and the denoiser alone under
+   by 6 trace and 2 (albedo) shade launches and 1 + 3 of the denoiser's
+   kernels a frame. Then the frame and the denoiser alone under
    torch.profiler; one frame's denoiser inputs filtered on the card and on
    the CPU by the same torch code (every float within atol 1e-5 + rtol
-   1e-4); the history's mean length growing over 4 static frames; and the
+   1e-4); at the cells' 3840x2160, one frame's denoiser inputs through the
+   kernels and through the plain torch code on the card (every output bit
+   for bit), each kernel's time beside its bound and the plain code's time;
+   the history's mean length growing over 4 static frames; and the
    suite's ``rmse_vs_converged`` (the last fly-through frame against 64
    static frames with the denoiser off at its pose) and
    ``rmse_noisy_1frame``, by ``utils/metrics.rmse``;
@@ -237,7 +240,10 @@ kernels' counts are against theirs; ``tex_level0``, ``tex_trilinear`` and
 ``tex_aniso`` count the texture launches of phases 4, 4c and 4e in
 ``launches``, ``hybrid_launches`` and ``sponzoid_launches`` (``tex_aniso``
 also phase 4d's in ``denoised_launches``), each checked against
-``texture_launches``; ``trace``'s ``alpha_launches`` counts
+``texture_launches``; ``denoise_temporal`` and ``denoise_atrous`` count
+phase 4d's denoiser launches in ``launches``, checked against
+``denoise_launches``, their times those of the 3840x2160 frame;
+``trace``'s ``alpha_launches`` counts
 phase 5f's full-size alpha run, its ``sponzoid_launches`` and
 ``sponzoid_animated_launches`` phase 4e's static and animated runs, ``cubes_launches`` / ``cubes_hybrid_launches`` of
 ``trace`` and ``shade`` phase 5g's path and hybrid cubes on the card, and
@@ -303,6 +309,11 @@ KERNELS = {
                             "none (vkrt_tpu/ops/texture.py::sample_texture_lod, in XLA)"),
     "tex_aniso": Kernel(CSRC + "texture.cu", "vkrt_tex_aniso",
                         "none (vkrt_tpu/ops/texture.py::sample_texture_aniso, in XLA)"),
+    "denoise_temporal": Kernel(CSRC + "denoise.cu", "vkrt_denoise_temporal",
+                               "none (vkrt_tpu/models/denoiser.py reproject, clamp, moments, "
+                               "in XLA)"),
+    "denoise_atrous": Kernel(CSRC + "denoise.cu", "vkrt_denoise_atrous",
+                             "none (vkrt_tpu/models/denoiser.py::atrous_filter, in XLA)"),
 }
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -335,6 +346,21 @@ SPONZOID_W, SPONZOID_H = 2560, 1440
 BILINEAR_OPS = 62
 TRILINEAR_OPS = 2 * BILINEAR_OPS + 20
 ANISO_TAP_OPS, ANISO_LANE_OPS = TRILINEAR_OPS + 11, 25
+# FP32 instructions of an a-trous pixel with the variance and the hit
+# distance (csrc/denoise.cu), counted from the source, each pow, exp, sqrt
+# and division as one (an optimistic bound): a tap 38 (the normal's dot 5,
+# its clamp 1, pow 1; the depth's difference, scale and exp 3; the kernel
+# weight 2; the luminance 5, its difference, division, exp and product 4;
+# the hit distance's 6; the sums 7; the variance's 4), the centre tap 6
+# fewer, and 37 around the taps (the centre's luminance 5, the pre-blur 22,
+# the hit distance 3, the divides 7)
+ATROUS_TAP_OPS, ATROUS_PIXEL_OPS = 38, 37 - 6
+# bytes a pixel: a-trous reads the image, normal, depth, variance and hit
+# distance and writes the image and variance; the temporal pass reads the
+# packed radiance and normal, depth, position and the six history fields
+# (each once) and writes the eight fields of ``models.denoiser.Temporal``
+ATROUS_BYTES = 12 + 12 + 4 + 4 + 4 + 12 + 4
+TEMPORAL_BYTES = 16 + 16 + 4 + 12 + (12 + 4 + 4 + 4 + 4 + 12) + (12 + 4 * 6 + 12)
 PROBE_VARIANTS = ("threaded", "binary", "ordered", "flat", "mt128")
 
 
@@ -870,6 +896,12 @@ def path_launches(depth: int, albedo: bool) -> dict:
     and a shadow trace a bounce), kernel B depth times (all of them albedo
     launches on a baseColor-only scene)."""
     return {"trace": 2 * depth, "shade": depth, "shade_albedo": depth if albedo else 0}
+
+
+def denoise_launches(temporal: bool = True) -> dict:
+    """The denoiser's launches a frame (``csrc/denoise.cu``): the temporal
+    pass once, the à-trous filter once an iteration (3)."""
+    return {"denoise_temporal": int(temporal), "denoise_atrous": 3}
 
 
 def hybrid_launches(depth: int, albedo: bool) -> dict:
@@ -1662,9 +1694,10 @@ def phase_denoised_main_path(dev, results, city, card):
     """Phase 4d: suite row 5 (``city_flythrough_denoised``) through
     ``Engine``: the fly-through timed (2 warm-up frames, 3 batches of 8,
     the camera at ``orbit_camera(k / 8, radius=300, height=48)`` before the
-    k-th frame of each), the launch counts (the denoiser adds none), the
+    k-th frame of each), the launch counts (the denoiser's 1 + 3), the
     profile of a frame and of the denoiser alone, one frame's denoiser
-    inputs filtered on the card and on the CPU, the history over static
+    inputs filtered on the card and on the CPU, row N at 3840x2160
+    (``denoiser_kernels``), the history over static
     frames, then the suite's ``rmse_vs_converged`` and
     ``rmse_noisy_1frame`` (``benchmarks/suite.py:203-229``)."""
     import torch
@@ -1675,10 +1708,13 @@ def phase_denoised_main_path(dev, results, city, card):
     t_phase = time.perf_counter()
     eng = Engine(city, W, H, denoised_settings(), flythrough_pose(0), CLEAR)
     per_frame = {**hybrid_launches(HYBRID_DEPTH, True), **rng_launches(eng.settings),
-                 **texture_launches(aniso=1)}
+                 **texture_launches(aniso=1), **denoise_launches()}
     best, launches, final = drive_engine(eng, per_frame, "denoised", pose=flythrough_pose)
     for name in ("trace", "shade", "shade_albedo", "tex_aniso"):
         results[name]["denoised_launches"] = launches[name]
+    denoiser_kernels(dev, results, city, card)
+    for name in denoise_launches():
+        results[name]["launches"] = launches[name]
     final = final.cpu().numpy().astype(np.float64)
     last = flythrough_pose(FLY_FRAMES - 1)
     poses = iter(range(FLY_FRAMES))
@@ -1734,6 +1770,64 @@ def phase_denoised_main_path(dev, results, city, card):
                            "profile": profile, "denoiser_stage": stage,
                            "card_vs_cpu_max_abs_err": err, **acc}
     log(f"[denoised] phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
+def same_bits(name, got, want) -> None:
+    """Bit-equal up to NaN payloads: NaN where ``want`` has one, every other
+    value equal."""
+    import torch
+
+    nan = torch.isnan(want)
+    bad = ((got != want) & ~nan) | (torch.isnan(got) != nan)
+    if bad.any():
+        raise AssertionError(f"{name}: {int(bad.sum())} of {got.numel()} values differ")
+
+
+def denoiser_kernels(dev, results, city, card):
+    """Row N at the cells' 3840x2160: one frame's denoiser inputs (the
+    second frame of the fly-through's orbit) through ``denoise_temporal``
+    (the kernels) and ``denoise_temporal_plain`` (the torch code) on the
+    card, every output bit for bit; then the temporal kernel's and an
+    à-trous launch's time (the 3 iterations' mean) beside their bounds, and
+    the plain code's time."""
+    import torch
+
+    from vkrt_tpu_torch.engine import Engine
+    from vkrt_tpu_torch.models import denoiser as dn
+
+    w, h = RNG_W, RNG_H
+    eng = Engine(city, w, h, denoised_settings(), flythrough_pose(0), CLEAR)
+    eng.render_frame()
+    eng.camera = flythrough_pose(1)
+    with DenoiserCalls() as rec:
+        eng.render_frame()
+    _, args, _ = rec.calls[-1]
+    state, packed, norm_rough, view_z, pos, view_proj = args[:6]
+    got, want = dn.denoise_temporal(*args), dn.denoise_temporal_plain(*args)
+    for field, a, b in zip(("filtered",) + dn.DenoiserState._fields, (got[0], *got[1]),
+                           (want[0], *want[1])):
+        same_bits(f"denoiser {w}x{h} {field}", a, b)
+    n = w * h
+    t = dn.temporal_pass(state, packed, norm_rough, view_z, pos, w, h, h)
+    temporal_ms = cuda_ms(lambda: dn.temporal_pass(state, packed, norm_rough, view_z, pos,
+                                                   w, h, h))
+    atrous_ms = cuda_ms(lambda: dn.atrous_filter(t.rad_acc, t.prev_normal, view_z, w, h, 3,
+                                                 t.variance, t.hit_dist)) / 3
+    plain_ms = cuda_ms(lambda: dn.denoise_temporal_plain(*args), reps=3)
+    out = {}
+    for name, ms, b in (("denoise_temporal", temporal_ms, bound(n * TEMPORAL_BYTES, 0)),
+                        ("denoise_atrous", atrous_ms,
+                         bound(n * ATROUS_BYTES, n * (25 * ATROUS_TAP_OPS + ATROUS_PIXEL_OPS)))):
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                     "library_ms": None, "max_abs_err": 0.0, "lanes": n}
+        log(f"[denoised] {name} at {w}x{h}: kernel {ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+            f"{b[0] / ms * 100:.1f}% of it")
+    valid = float((got[1].hist_len > 1.0).float().mean())
+    log(f"[denoised] the denoiser at {w}x{h} ({card}): 1 temporal + 3 a-trous launches "
+        f"{temporal_ms + 3 * atrous_ms:.4f} ms, the plain torch code {plain_ms:.4f} ms device; "
+        f"kernels and plain equal bit for bit in every output ({valid:.4f} of the pixels "
+        f"reprojected)")
+    results.update(out)
 
 
 def phase_denoised_end_to_end(dev):

@@ -54,7 +54,7 @@ def test_counts_and_reset():
     row in place, so a reader holding the table sees it."""
     assert set(kdev.counts) == {e for e in kdev._SIGNATURES if not e.endswith("_info")} | {
         kdev.SHADE_ALBEDO}
-    assert len(kdev.counts) == 12
+    assert len(kdev.counts) == 14
     table = kdev.counts
     table["vkrt_trace"]["launches"] += 2
     table["vkrt_tex_aniso"]["lanes"] += 7

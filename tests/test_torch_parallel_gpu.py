@@ -9,7 +9,7 @@ at import). The card's machine has no JAX: run with ``python -m pytest
 * meshes (2,1) and (4,1), the ranks sharing one card (gloo; NCCL when
   there is a card a rank): path mode bit for bit the engine (corr off),
   and the denoised hybrid frame with GI per pixel the engine's over 2
-  frames;
+  frames, the band form's denoiser kernels launched 1 + 3 times a frame;
 * kernel A launched on a tensor of the second card while the first is
   current (skips with one card): the launch goes to the tensor's card."""
 
@@ -84,6 +84,8 @@ def test_ranks_match_engine(cuda, n_tile):
     assert path["backend"] == hyb["backend"] == want
     assert [_kernels_a_b(c) for c in path["launches"]] == [(12, 6, 0)] * n_tile
     assert [_kernels_a_b(c) for c in hyb["launches"]] == [(12, 4, 0)] * n_tile
+    assert [(c["vkrt_denoise_temporal"], c["vkrt_denoise_atrous"])
+            for c in hyb["launches"]] == [(2, 6)] * n_tile  # 1 + 3 a frame
     e = _engine(cuda, 2, rt_mode=1, corr_sampler=False)
     assert torch.equal(path["accum"], e.accum[e._inv_perm].cpu())
     assert path["rays"] == e.total_rays

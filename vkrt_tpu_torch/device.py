@@ -151,6 +151,28 @@ _SIGNATURES = {
         _I, _I, _P,          # taps, n, out (N, 4) f32
         _P,                  # stream
     ],
+    "vkrt_denoise_atrous": [
+        _P, _P, _P,          # radiance (H, W, 3), its top and bottom halo rows (k, W, 3)
+        _P, _P, _P,          # normal, the same
+        _P, _P, _P,          # view_z (H, W), halos (k, W)
+        _P, _P, _P,          # variance, halos, or null
+        _P, _P,              # raw hit distance (H * W,) or null, tap table (host, 78 f32)
+        _I, _I, _I,          # width, height, step
+        _P, _P,              # out radiance, out variance (null without)
+        _P,                  # stream
+    ],
+    "vkrt_denoise_temporal": [
+        _P, _P, _P,          # packed radiance (rows, W, 4), the rows above and below (1, W, 4)
+        _P, _P,              # norm_rough (rows * W, 4), view_z
+        _P, _L, _L,          # world_pos, stride lane, stride component
+        _P,                  # the history's view_proj (4, 4)
+        _P, _P, _P, _P, _P, _P,  # hist rad, m1, m2, len, prev view_z, prev normal (frame)
+        _I, _I, _I,          # width, height, rows
+        _F, _F, _F,          # max history, depth reject, normal reject
+        _P, _P, _P, _P,      # out rad_acc, variance, hit distance, m1
+        _P, _P, _P, _P,      # out m2, length, |view_z|, normal
+        _P,                  # stream
+    ],
 }
 
 

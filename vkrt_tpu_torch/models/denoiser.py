@@ -18,16 +18,22 @@ roughness, viewZ, and the camera's motion.
   temporally, their variance steers the luminance edge-stopper, and the
   packed hit distance scales the blur radius.
 
-Everything is image-space tensor math except the one history gather (4
+On the card a denoised frame is 1 + 3 launches of ``csrc/denoise.cu``
+(``ops/cuda/denoise.py``): ``temporal_pass`` (unpack, reprojection, clamp,
+moments) and one ``atrous_filter`` launch an iteration, one thread a pixel,
+each reading its neighbourhood in place. Every CPU call takes the PyTorch
+bodies, the plain version (``temporal_pass_plain``, ``atrous_filter_plain``,
+``denoise_temporal_plain``), which the card's kernels are held to. There
+everything is image-space tensor math except the one history gather (4
 bilinear taps a pixel). The taps of the à-trous filter are periodic row
 shifts written as "pad k halo rows, then slice" (``_pad_rows`` with a
 ``halo_fn``) followed by a periodic column roll, as in the JAX package, so
 the row-band form (``denoise_temporal_tile``, a frame's bands on the tile
 axis of a ``parallel.mesh.RenderMesh``) only supplies another halo: the
-neighbour bands' rows over the ring (``_ring_halo``). The projective products
-are explicit multiply-adds, never a matmul (which the card may run as
-TF32). On the card this is ordinary PyTorch: the JAX package has no Pallas
-kernel for it.
+neighbour bands' rows over the ring (``_ring_halo``). The kernels take the
+same halos as row pointers, so both forms run on them too. The projective
+products are explicit multiply-adds, never a matmul (which the card may run
+as TF32). The JAX package has no Pallas kernel for any of this.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 
 from vkrt_tpu_torch.device import select
 from vkrt_tpu_torch.ops import nrd
+from vkrt_tpu_torch.ops.cuda import denoise as dn_cuda
 
 # 1D B3-spline kernel for the à-trous wavelet
 _KERNEL = (1.0 / 16.0, 1.0 / 4.0, 3.0 / 8.0, 1.0 / 4.0, 1.0 / 16.0)
@@ -51,6 +58,20 @@ NORMAL_REJECT = 0.8    # min dot(n, n_prev) to accept history
 
 def _luminance(rgb):
     return 0.25 * rgb[..., 0] + 0.5 * rgb[..., 1] + 0.25 * rgb[..., 2]
+
+
+class Temporal(NamedTuple):
+    """What the temporal pass hands the à-trous filter and the new state,
+    per pixel of the frame or band, image order."""
+
+    rad_acc: torch.Tensor      # (N,3) accumulated radiance, history clamped
+    variance: torch.Tensor     # (N,) luminance variance, short-history boost
+    hit_dist: torch.Tensor     # (N,) normalized hit distance as packed
+    hist_m1: torch.Tensor      # (N,) luminance moments
+    hist_m2: torch.Tensor
+    hist_len: torch.Tensor     # (N,) history length
+    prev_view_z: torch.Tensor  # (N,) |view_z|
+    prev_normal: torch.Tensor  # (N,3) unpacked normal
 
 
 class DenoiserState(NamedTuple):
@@ -203,31 +224,35 @@ def reproject(state: DenoiserState, world_pos, view_z, normal, width: int, heigh
     )
 
 
+def _clamp_rows(x, halo_fn=None, mesh=None):
+    """The rows above and below ``x`` (rows, W, ...) that the clamp's 3x3
+    box reads. The full frame repeats its own edge rows (an index clamp, the
+    JAX package's ``mode="edge"`` pad), not a roll: wrapped taps would let
+    border pixels clamp against the opposite edge of the frame. With
+    ``halo_fn`` (``_ring_halo(mesh)``; ``x`` a band) the band's inner
+    borders take the neighbour bands' rows, and the first band's top and
+    the last band's bottom repeat their own edge row, which is the
+    full-frame edge pad exactly. The ring's wrap is not used there: this
+    halo rule is not the à-trous filter's."""
+    if halo_fn is None:
+        return x[:1], x[-1:]
+    top, bottom = halo_fn(x, 1)  # every band takes part in the exchange
+    if mesh.tile == 0:
+        top = x[:1]
+    if mesh.tile == mesh.shape["tile"] - 1:
+        bottom = x[-1:]
+    return top, bottom
+
+
 def _neighborhood_clamp(hist_rad, cur_rad, width: int, height: int, halo_fn=None,
                         mesh=None):
-    """Clamp history to the 3x3 box of the current frame (anti-ghosting).
-    Edge-replicated shifts (an index clamp, the JAX package's ``mode="edge"``
-    pad), not a roll: wrapped taps would let border pixels clamp against
-    the opposite edge of the frame.
-
-    With ``halo_fn`` (``_ring_halo(mesh)``; ``height`` the band's rows) the
-    band's inner borders take the neighbour bands' rows, and the first
-    band's top halo and the last band's bottom halo repeat their own edge
-    row, which is the full-frame edge pad exactly. The ring's wrap is not
-    used there: this halo rule is not the à-trous filter's."""
+    """Clamp history to the 3x3 box of the current frame (anti-ghosting):
+    rows beyond ``height`` (the frame's, or with ``halo_fn`` a band's) as
+    ``_clamp_rows`` gives them, columns edge-replicated."""
     img = cur_rad.reshape(height, width, 3)
-    dev = img.device
-    if halo_fn is None:
-        rows = torch.clamp(torch.arange(-1, height + 1, device=dev), 0, height - 1)
-        img_rows = img[rows]
-    else:
-        top, bottom = halo_fn(img, 1)  # every band takes part in the exchange
-        if mesh.tile == 0:
-            top = img[:1]
-        if mesh.tile == mesh.shape["tile"] - 1:
-            bottom = img[-1:]
-        img_rows = torch.cat([top, img, bottom], dim=0)
-    cols = torch.clamp(torch.arange(-1, width + 1, device=dev), 0, width - 1)
+    top, bottom = _clamp_rows(img, halo_fn, mesh)
+    img_rows = torch.cat([top, img, bottom], dim=0)
+    cols = torch.clamp(torch.arange(-1, width + 1, device=img.device), 0, width - 1)
     padded = img_rows[:, cols]
     lo = img
     hi = img
@@ -237,6 +262,12 @@ def _neighborhood_clamp(hist_rad, cur_rad, width: int, height: int, halo_fn=None
             lo = torch.minimum(lo, q)
             hi = torch.maximum(hi, q)
     return torch.clamp(hist_rad, lo.reshape(-1, 3), hi.reshape(-1, 3))
+
+
+def _check_reach(height: int, iterations: int) -> None:
+    # the largest tap reach must fit in one band (and in the self-wrap slices)
+    if height < 2 ** iterations:
+        raise ValueError(f"atrous_filter needs height >= {2 ** iterations}, got {height}")
 
 
 def atrous_filter(radiance, normal, view_z, width: int, height: int, iterations: int = 3,
@@ -250,12 +281,25 @@ def atrous_filter(radiance, normal, view_z, width: int, height: int, iterations:
     ``halo_fn``: the row-halo source; None is the full frame (periodic
     self-wrap, the roll formulation), ``_ring_halo(mesh)`` a band whose
     neighbours' rows come over the ring (the ring's wrap is roll's
-    periodicity, so the bands give the full-frame image)."""
+    periodicity, so the bands give the full-frame image).
+
+    On the card one launch of ``csrc/denoise.cu`` an iteration (the inputs
+    contiguous), on the CPU ``atrous_filter_plain``."""
+    if radiance.device.type != "cuda":
+        return atrous_filter_plain(radiance, normal, view_z, width, height, iterations,
+                                   variance, hit_dist_norm, halo_fn)
+    _check_reach(height, iterations)
+    return dn_cuda.atrous(radiance, normal, view_z, width, height, iterations, variance,
+                          hit_dist_norm, _periodic_halo if halo_fn is None else halo_fn,
+                          (_KERNEL, SIGMA_Z, SIGMA_N, SIGMA_L))
+
+
+def atrous_filter_plain(radiance, normal, view_z, width: int, height: int,
+                        iterations: int = 3, variance=None, hit_dist_norm=None, halo_fn=None):
+    """``atrous_filter`` in PyTorch: the taps as rolls of padded copies."""
     h, w = height, width
     halo = _periodic_halo if halo_fn is None else halo_fn
-    # the largest tap reach must fit in one band (and in the self-wrap slices)
-    if h < 2 ** iterations:
-        raise ValueError(f"atrous_filter needs height >= {2 ** iterations}, got {h}")
+    _check_reach(h, iterations)
     img = radiance.reshape(h, w, 3)
     nrm = normal.reshape(h, w, 3)
     z = view_z.reshape(h, w)
@@ -325,7 +369,7 @@ def denoise_gi(diff_rad_hitd, norm_rough_packed, view_z, width: int, height: int
                iterations: int = 3):
     """The spatial-only REBLUR-contract entry: unpack, filter, return
     linear RGB (N,3)."""
-    radiance = nrd.unpack_radiance_and_norm_hit_dist(diff_rad_hitd)[..., :3]
+    radiance = nrd.unpack_radiance_and_norm_hit_dist(diff_rad_hitd)[..., :3].contiguous()
     normal, _rough, _mid = nrd.unpack_normal_and_roughness(norm_rough_packed)
     return atrous_filter(radiance, normal, view_z, width, height, iterations)
 
@@ -341,19 +385,29 @@ def denoise_temporal(state: DenoiserState, diff_rad_hitd, norm_rough_packed, vie
                     view_proj, width, height, height, iterations)
 
 
+def denoise_temporal_plain(state: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z,
+                           world_pos, view_proj, width: int, height: int,
+                           iterations: int = 3):
+    """``denoise_temporal`` through the PyTorch bodies on any device: the
+    plain version the card's kernels are held to."""
+    return _denoise(state, diff_rad_hitd, norm_rough_packed, view_z, world_pos,
+                    view_proj, width, height, height, iterations, plain=True)
+
+
 def _gather_history(state: DenoiserState, mesh) -> DenoiserState:
     """The whole frame's history from the bands': the six per-pixel arrays
     packed into one (n, 10) block, gathered over the tile axis in one
-    collective."""
+    collective, then each contiguous again."""
     from vkrt_tpu_torch.parallel.mesh import all_gather_rows
 
     packed = torch.cat([state.hist_rad, state.hist_m1[:, None], state.hist_m2[:, None],
                         state.hist_len[:, None], state.prev_view_z[:, None],
                         state.prev_normal], dim=1)
     full = all_gather_rows(packed, mesh)
-    return state._replace(hist_rad=full[:, 0:3], hist_m1=full[:, 3], hist_m2=full[:, 4],
-                          hist_len=full[:, 5], prev_view_z=full[:, 6],
-                          prev_normal=full[:, 7:10])
+    return state._replace(hist_rad=full[:, 0:3].contiguous(), hist_m1=full[:, 3].contiguous(),
+                          hist_m2=full[:, 4].contiguous(), hist_len=full[:, 5].contiguous(),
+                          prev_view_z=full[:, 6].contiguous(),
+                          prev_normal=full[:, 7:10].contiguous())
 
 
 def denoise_temporal_tile(state: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z,
@@ -380,12 +434,26 @@ def denoise_temporal_tile(state: DenoiserState, diff_rad_hitd, norm_rough_packed
                     world_pos.shape[0] // width, iterations, _ring_halo(mesh), mesh)
 
 
-def _denoise(history: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z, world_pos,
-             view_proj, width: int, height: int, rows: int, iterations: int, halo_fn=None,
-             mesh=None):
-    """The temporal denoise of ``rows`` rows (the whole frame, or a band
-    with its ``halo_fn``) reprojecting against ``history`` (the whole
-    frame's)."""
+def temporal_pass(history: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z,
+                  world_pos, width: int, height: int, rows: int, halo_fn=None,
+                  mesh=None) -> Temporal:
+    """The temporal half of the denoiser over ``rows`` rows (the whole
+    frame, or a band with its ``halo_fn`` and ``mesh``) reprojecting against
+    ``history`` (the whole frame's): unpack, reprojection, the clamp, the
+    accumulation and the moments. On the card one launch of
+    ``csrc/denoise.cu``, on the CPU ``temporal_pass_plain``."""
+    if world_pos.device.type != "cuda":
+        return temporal_pass_plain(history, diff_rad_hitd, norm_rough_packed, view_z,
+                                   world_pos, width, height, rows, halo_fn, mesh)
+    return Temporal(*dn_cuda.temporal(
+        history, diff_rad_hitd, norm_rough_packed, view_z, world_pos, width, height,
+        lambda x: _clamp_rows(x, halo_fn, mesh), (MAX_HISTORY, DEPTH_REJECT, NORMAL_REJECT)))
+
+
+def temporal_pass_plain(history: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z,
+                        world_pos, width: int, height: int, rows: int, halo_fn=None,
+                        mesh=None) -> Temporal:
+    """``temporal_pass`` in PyTorch."""
     unpacked = nrd.unpack_radiance_and_norm_hit_dist(diff_rad_hitd)
     cur_rad = unpacked[..., :3]
     hd_norm = unpacked[..., 3]
@@ -403,12 +471,26 @@ def _denoise(history: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z, w
     variance = torch.clamp_min(m2 - m1 * m1, 0.0)
     # short history: inflate the variance so the spatial filter works harder
     variance = variance + torch.where(new_len < 4.0, 0.5 / new_len, 0.0)
+    return Temporal(rad_acc=rad_acc, variance=variance, hit_dist=hd_norm, hist_m1=m1,
+                    hist_m2=m2, hist_len=new_len, prev_view_z=view_z.abs(),
+                    prev_normal=normal)
 
-    filtered = atrous_filter(rad_acc, normal, view_z, width, rows, iterations,
-                             variance=variance, hit_dist_norm=hd_norm, halo_fn=halo_fn)
+
+def _denoise(history: DenoiserState, diff_rad_hitd, norm_rough_packed, view_z, world_pos,
+             view_proj, width: int, height: int, rows: int, iterations: int, halo_fn=None,
+             mesh=None, plain: bool = False):
+    """The temporal denoise of ``rows`` rows (the whole frame, or a band
+    with its ``halo_fn``) reprojecting against ``history`` (the whole
+    frame's); ``plain``: through the PyTorch bodies on any device."""
+    t = (temporal_pass_plain if plain else temporal_pass)(
+        history, diff_rad_hitd, norm_rough_packed, view_z, world_pos, width, height, rows,
+        halo_fn, mesh)
+    filtered = (atrous_filter_plain if plain else atrous_filter)(
+        t.rad_acc, t.prev_normal, view_z, width, rows, iterations, variance=t.variance,
+        hit_dist_norm=t.hit_dist, halo_fn=halo_fn)
     # SVGF feeds the first filtered result back as next frame's history;
     # this keeps the final filtered image (stabler under motion)
-    new_state = DenoiserState(hist_rad=filtered, hist_m1=m1, hist_m2=m2, hist_len=new_len,
-                              prev_view_proj=view_proj, prev_view_z=view_z.abs(),
-                              prev_normal=normal)
+    new_state = DenoiserState(hist_rad=filtered, hist_m1=t.hist_m1, hist_m2=t.hist_m2,
+                              hist_len=t.hist_len, prev_view_proj=view_proj,
+                              prev_view_z=t.prev_view_z, prev_normal=t.prev_normal)
     return filtered, new_state

@@ -19,8 +19,9 @@ the G-buffer of ``models/gbuffer.py``. Per pixel:
 On the card a frame runs kernel A three ways: the G-buffer's closest
 trace, one first-hit-kills launch for the shadow and AO rays of every
 pixel together, and the GI chain's traces; kernel B shades the GI chain
-where it shades the scene. The denoiser is PyTorch and launches no kernel
-of its own.
+where it shades the scene. The denoiser launches its own kernels
+(``csrc/denoise.cu``): the temporal pass and one launch an à-trous
+iteration, 1 + 3 a temporal frame, 3 a spatial-only one.
 
 The stages run under named ranges of ``utils.profiling``: "gbuffer",
 "visibility" (the shadow and AO pool and its verdicts), "gi" (the chain
